@@ -1,0 +1,191 @@
+"""The port's whole slice against the JAX package: tiny-qwen3 quantized by
+both from the same weights and calibration tokens.
+
+What agrees and to what tolerance:
+- per-module ranks: identical (same Hessians to f32 summation order, same
+  trace rule);
+- codes: identical for layer 0's modules up to gate/up (their inputs,
+  embedding and RMSNorm, round identically in both packages), and at least
+  90 % identical over the model.  From silu(gate)·up on, the calibration
+  forward's bf16 rounds at other places in XLA than in PyTorch; the
+  Hessians and then the next layer's inputs differ at the bf16 ulp level
+  and move weights across quantization ties (measured: down_proj 98 %,
+  layer 1 81-97 %);
+- perplexity of the quantized models: within 1 %.
+"""
+import copy
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tgq.calib import QuantizeConfig as JConfig
+from tgq.calib import quantize_model as j_quantize
+from tgq.calib.data import synthetic_calibration, synthetic_eval_stream
+from tgq.eval import perplexity_from_token_stream as j_ppl
+from tgq.models import PRESETS, init_params
+from tgq_torch.calib import QuantizeConfig, quantize_model
+from tgq_torch.core.packing import unpack_rows
+from tgq_torch.eval import perplexity_from_token_stream
+from tgq_torch.models.causal_lm import get_nested
+from tgq_torch.models.convert import params_from_numpy
+
+CFG = PRESETS["tiny-qwen3"]
+
+
+@pytest.fixture(scope="module")
+def both():
+    jparams = init_params(CFG, jax.random.key(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    calib = synthetic_calibration(CFG.vocab_size, n_samples=8, seq_len=64, seed=42)
+    eval_ids = synthetic_eval_stream(CFG.vocab_size, 2048, seed=43)
+    kw = dict(mode="pchol", w_bits=4, group_size=-1, batch_size=4, block_size=32,
+              eps=1e-6, threshold_method="energy", attn_impl="naive")
+    jq, jpacked, jlog = j_quantize(copy.deepcopy(jparams), CFG, calib, JConfig(**kw))
+    tq, tpacked, tlog = quantize_model(copy.deepcopy(tparams), CFG, calib,
+                                       QuantizeConfig(**kw), device="cpu")
+    return dict(jq=jq, jpacked=jpacked, jlog=jlog, tq=tq, tpacked=tpacked, tlog=tlog,
+                eval_ids=eval_ids, tparams=tparams)
+
+
+def test_ranks_identical(both):
+    jr = [(s["name"], s["rank"]) for s in both["jlog"]["layer_stats"]]
+    tr = [(s["name"], s["rank"]) for s in both["tlog"]["layer_stats"]]
+    assert tr == jr
+
+
+def test_codes_agree(both):
+    assert set(both["tpacked"]) == set(both["jpacked"])
+    same = total = 0
+    for key, tpl in both["tpacked"].items():
+        jpl = both["jpacked"][key]
+        assert (tpl.bits, tpl.group_size, tpl.in_features, tpl.out_features) == (
+            jpl.bits, jpl.group_size, jpl.in_features, jpl.out_features)
+        tc = unpack_rows(tpl.codes.T, 4, tpl.group_size, tpl.in_features).numpy()
+        jc = unpack_rows(torch.from_numpy(np.array(jpl.codes)).T, 4, jpl.group_size,
+                         jpl.in_features).numpy()
+        if key.startswith("layers.0.") and not key.endswith("down_proj"):
+            np.testing.assert_array_equal(tc, jc, err_msg=key)
+        same += int((tc == jc).sum())
+        total += tc.size
+    assert same / total >= 0.9, same / total
+
+
+def test_ppl_within_one_percent(both):
+    kw = dict(max_length=64, stride=32)
+    pj = j_ppl(both["jq"], CFG, both["eval_ids"], attn_impl="naive", **kw)
+    pt = perplexity_from_token_stream(both["tq"], CFG, both["eval_ids"], **kw)
+    assert np.isfinite(pt) and abs(pt / pj - 1) < 0.01, (pt, pj)
+    base = perplexity_from_token_stream(both["tparams"], CFG, both["eval_ids"], **kw)
+    assert pt < base * 1.05, (pt, base)
+
+
+def test_packed_export_matches_written_weights(both):
+    for li in range(CFG.num_layers):
+        for path in ("self_attn.q_proj", "mlp.down_proj"):
+            pl = both["tpacked"][f"layers.{li}.{path}"]
+            written = get_nested(both["tq"]["model"]["layers"][li], path)["w"]
+            assert torch.equal(pl.dequantize().to(torch.bfloat16), written)
+
+
+def test_log_schema(both):
+    assert set(both["tlog"]) == set(both["jlog"])
+    assert set(both["tlog"]["config"]) == set(both["jlog"]["config"])
+    for st in both["tlog"]["layer_stats"]:
+        assert set(st) >= {"name", "rank", "time", "rel_error"}
+        assert np.isfinite(st["rel_error"]) and st["rel_error"] <= st["rtn_rel_error"]
+
+
+@pytest.mark.parametrize("mode", ["eigh", "gptq", "svd", "rtn"])
+def test_other_modes_run(both, mode):
+    kw = dict(mode=mode, w_bits=8, group_size=32, batch_size=4, block_size=32,
+              eps=1e-6, threshold_method="energy", actorder=True)
+    calib = synthetic_calibration(CFG.vocab_size, 4, 32, seed=1)
+    p, packed, log = quantize_model(copy.deepcopy(both["tparams"]), CFG, calib,
+                                    QuantizeConfig(**kw), device="cpu")
+    assert len(packed) == CFG.num_layers * 7
+    ppl = perplexity_from_token_stream(p, CFG, both["eval_ids"], max_length=64, stride=32)
+    assert np.isfinite(ppl)
+
+
+def test_resume_is_refused(both):
+    with pytest.raises(NotImplementedError):
+        quantize_model(both["tparams"], CFG, np.zeros((1, 8), np.int32),
+                       QuantizeConfig(), device="cpu", resume_dir="x")
+
+
+def test_trunc_beats_gptq_on_outlier_channel_model():
+    """Port counterpart of tests/test_pipeline_e2e.py::
+    test_trunc_beats_gptq_on_outlier_channel_model: on a tiny model trained
+    (by the JAX package) with induced outlier channels, W3 pchol at
+    eps 1e-6 loses no more PPL than damped GPTQ at damp 0.01."""
+    from tgq.calib.tiny_train import sample_stream, train_tiny
+
+    jparams, probs, _ = train_tiny(CFG, steps=300, seed=1, outlier_channels=8,
+                                   outlier_scale=100.0)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    calib = sample_stream(probs, 32 * 64, seed=7).reshape(32, 64)
+    eval_ids = sample_stream(probs, 4096, seed=99)
+
+    def ppl_of(p):
+        return perplexity_from_token_stream(p, CFG, eval_ids, max_length=64, stride=32)
+
+    base = ppl_of(params)
+    deltas = {}
+    for mode, kw in (("pchol", dict(eps=1e-6)),
+                     ("gptq", dict(actorder=True, damp_percent=0.01))):
+        qcfg = QuantizeConfig(mode=mode, w_bits=3, group_size=32, batch_size=4,
+                              block_size=32, pack=False, **kw)
+        p, _, _ = quantize_model(copy.deepcopy(params), CFG, calib, qcfg, device="cpu")
+        deltas[mode] = ppl_of(p) - base
+    assert deltas["pchol"] <= deltas["gptq"], deltas
+
+
+def test_singular_layer0_hessian_matches_jax():
+    """Layer 0's q/k/v group at Qwen3-8B width on one synthetic_calibration
+    bank (8 x 2048 tokens, 3974 distinct: a singular 4096-wide Hessian),
+    through each package's RMSNorm input, Hessian, pchol and GPTQ loop on
+    the same numpy-seeded embedding rows and k_proj.  Both keep every
+    distinct token's direction (rank 3974), and both beat RTN by the same
+    margin: rel_errors within 1 % of each other (pivot orders differ
+    where conditional variances tie to f32 rounding)."""
+    from tgq.core.quant import QuantSpec as JSpec
+    from tgq.models.causal_lm import attn_input as j_attn_input
+    from tgq.solver import pchol as jp
+    from tgq.solver.gptq_loop import quantize_weight as j_quantize_weight
+    from tgq.solver.hessian import HessianAccumulator as JAcc
+    from tgq_torch.core.quant import QuantSpec, fake_quantize
+    from tgq_torch.models import PRESETS as T_PRESETS
+    from tgq_torch.models.causal_lm import attn_input
+    from tgq_torch.solver import pchol as tp
+    from tgq_torch.solver.gptq_loop import quantize_weight, rel_error
+    from tgq_torch.solver.hessian import HessianAccumulator
+
+    cfg = T_PRESETS["qwen3-8b"]
+    d = cfg.hidden_size
+    ids = synthetic_calibration(cfg.vocab_size, n_samples=8, seq_len=2048, seed=42)
+    tokens, inv = np.unique(ids, return_inverse=True)
+    rng = np.random.default_rng(0)
+    emb = torch.from_numpy((rng.standard_normal((len(tokens), d)) * 0.02)
+                           .astype(np.float32)).bfloat16()
+    w = torch.from_numpy((rng.standard_normal((cfg.kv_size, d)) / d ** 0.5)
+                         .astype(np.float32)).bfloat16().float()
+    x = emb[torch.from_numpy(inv.reshape(ids.shape).astype(np.int64))]
+    h_t = HessianAccumulator.init(d).update(
+        attn_input({"input_layernorm": {"weight": torch.ones(d, dtype=torch.bfloat16)}},
+                   cfg, x)).finalize()
+    xj = jax.numpy.asarray(x.view(torch.int16).numpy()).view(jax.numpy.bfloat16)
+    h_j = np.asarray(JAcc.init(d).update(j_attn_input(
+        {"input_layernorm": {"weight": jax.numpy.ones(d, jax.numpy.bfloat16)}},
+        PRESETS["qwen3-8b"], xj)).finalize())
+    ft = tp.pchol_factor(h_t, eps=1e-6)
+    fj = jp.pchol_factor(h_j, eps=1e-6)
+    assert ft.rank == fj.rank == len(tokens) == 3974
+    spec = QuantSpec(bits=4, group_size=128, sym=False)
+    rel_t = float(quantize_weight(w, ft, spec).rel_error)
+    rel_j = float(j_quantize_weight(jax.numpy.asarray(w.numpy()), fj,
+                                    JSpec(bits=4, group_size=128, sym=False)).rel_error)
+    rtn = float(rel_error(w, fake_quantize(w, spec), ft.perm.long(), ft.r_x))
+    assert abs(rel_t / rel_j - 1) <= 0.01, (rel_t, rel_j)
+    assert rel_t <= 0.9 * rtn, (rel_t, rtn)

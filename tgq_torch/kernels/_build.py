@@ -1,0 +1,117 @@
+"""Build and load the CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` (all started
+together) for ``sm_90a`` into an object with a plain C interface; the
+objects are linked into ``_build/<hash>/libtgq_kernels.so`` and loaded
+with ``ctypes``.  The directory is keyed by a hash of the sources and
+flags, so the first call after a change rebuilds and later calls (and
+processes) reuse the library.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_ROOT = _HERE / "_build"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# per-source extra flags: the GPTQ sweep must not contract mul+sub into FMA
+SOURCES = {
+    "pchol_panel.cu": [],
+    "gptq_block.cu": ["-fmad=false"],
+}
+
+_lib = None
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "tgq_pchol_panel_max_blocks": ([_I, _I], _I),
+    "tgq_pchol_panel_threads": ([], _I),
+    "tgq_pchol_panel": ([_P] * 11 + [_I] * 5 + [_P], _I),
+    "tgq_gptq_block": ([_P] * 6 + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _P], _I),
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("tgq_torch kernels: nvcc not found (set CUDA_HOME)")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for name, flags in sorted(SOURCES.items()):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+        h.update(" ".join(ARCH + COMMON + flags).encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / "libtgq_kernels.so"
+
+
+def ptxas_report() -> str:
+    """Registers, shared memory and spills per kernel, as ptxas printed
+    them when the library was built."""
+    rep = library_path().parent / "ptxas.txt"
+    return rep.read_text() if rep.exists() else ""
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs, objs = [], []
+        for name, flags in SOURCES.items():
+            obj = Path(tmp) / (Path(name).stem + ".o")
+            cmd = [nvcc, *ARCH, *COMMON, *flags, "-Xptxas=-v",
+                   "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            objs.append(str(obj))
+        reports = []
+        for name, p in procs:
+            text, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}:\n{text}")
+            reports.append(f"--- {name}\n{text}")
+        lib_tmp = Path(tmp) / "libtgq_kernels.so"
+        link = subprocess.run([nvcc, *ARCH, "-shared", *objs, "-o", str(lib_tmp)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        (out.parent / "ptxas.txt").write_text("\n".join(reports))
+        os.replace(lib_tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for fn, (argtypes, restype) in _SIGNATURES.items():
+            getattr(handle, fn).argtypes = argtypes
+            getattr(handle, fn).restype = restype
+        _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
