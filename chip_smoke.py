@@ -18,10 +18,14 @@ Phases:
      tokens, the packed checkpoint round trip and strided perplexity.
      Both kernels' launch counters must rise during this run.
   4. ``python -m tgq_torch.cli.quantize`` on tiny-qwen3.
-  5. K3 (packed-weight matmul, bits 2/3/4/8, GLU) and K4 (W4A8) against
-     their plain versions at the Qwen3-8B serving shapes, t = 8, 64, 1024.
+  5. K3 (packed-weight matmul on the tensor cores, bits 2/3/4/8, GLU,
+     bf16 and f32 activations) on groups of 32, 64 and one a row, then K3
+     and K4 (W4A8) against their plain versions at the Qwen3-8B serving
+     shapes, t = 8, 64, 1024, beside the library int4 GEMM, a dense bf16
+     matmul and dequantize-once.
   6. K5 (paged decode attention) against its plain version: bf16, int8
-     and int4 pools, soft cap, the current-row write with a dead slot.
+     and int4 pools, soft cap, the current-row write with a dead slot;
+     SDPA on the same K/V gathered dense beside it.
   7. The serving main path at Qwen3-8B full width: 4-layer paged decode
      held against full-recompute ``forward``, then
      ``tgq_torch.cli.serve.run`` at 36 layers with kv_bits 16, 8 and
@@ -64,14 +68,21 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` calls."""
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls.  A spin
+    kernel keeps the card busy while the host queues the timed calls, so
+    the events bracket the device's work and not the host's dispatch."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2e9 * (2 * reps * host_s + 1e-3), 1e9)))  # ~2 GHz cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -424,14 +435,62 @@ QWEN3_8B_MATMULS = (("qkv", 6144, 4096), ("o", 4096, 4096), ("gate_up", 24576, 4
                     ("down", 4096, 12288), ("lm_head", 151936, 4096))
 
 
+def k3_group_check(dev, n_out: int = 520, n_in: int = 1024, tokens=(8, 64)) -> None:
+    """K3 beyond the 128-input chunks of the serving shapes: groups of 32
+    and 64 (chunks of a whole small group, uc read at run time), one group
+    per row (g = in_features), and 520 output columns (a ragged last tile,
+    codes copied bytewise since rows are not 16-byte multiples); bits
+    2/3/4/8, bf16 and f32 x, GLU at W4.  The same limits as phase 5."""
+    import torch
+
+    from tgq_torch.kernels import dequant_matmul as KD
+
+    gen = torch.Generator(device=dev).manual_seed(55)
+    before = KD.launches
+    for g in (32, 64, -1):
+        for bits in (2, 3, 4, 8):
+            w = random_packed(n_out, n_in, bits, gen, dev, group=g)
+            worst = 0.0
+            for t in tokens:
+                for x_dt, glu in ((torch.bfloat16, False), (torch.float32, False),
+                                  (torch.bfloat16, bits == 4)):
+                    x = torch.randn((t, 2 * n_in if glu else n_in), generator=gen,
+                                    device=dev).to(x_dt)
+                    y32 = KD.quantized_matmul(x, w, out_dtype=torch.float32, glu=glu)
+                    y16 = KD.quantized_matmul(x, w, out_dtype=torch.bfloat16, glu=glu)
+                    ref = KD.dequant_matmul_plain(x, w, glu=glu)
+                    rel = float((y32 - ref).abs().max() / ref.abs().max())
+                    worst = max(worst, rel)
+                    case = (g, bits, t, x_dt, glu, rel)
+                    assert rel <= 1e-4, case
+                    assert torch.equal(y16, y32.to(torch.bfloat16)), case
+                    assert torch.equal(y32, KD.quantized_matmul(x, w, out_dtype=torch.float32,
+                                                                glu=glu)), case
+                    if glu:
+                        split = KD.quantized_matmul(KD.glu_act(x[:, :n_in], x[:, n_in:]), w,
+                                                    out_dtype=torch.bfloat16)
+                        assert torch.equal(y16, split), case
+            plan = KD._k3_plan(tokens[0], n_in, n_out, w.group_size, bits)
+            log(f"[phase5] K3 {n_out}x{n_in} W{bits} g{w.group_size}: chunk {plan.chunk_k} "
+                f"({'fixed' if plan.chunk_k == 128 else 'run-time'} build), t = {tokens}, bf16 / "
+                f"f32 x{', GLU' if bits == 4 else ''}: max|dy| / max|y| {worst:.2e}, bf16 = "
+                f"rounded f32, repeat bit-identical")
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    KD.launches = before
+
+
 def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 64, 1024),
                   time_it=None) -> None:
-    """K3 (bits 2/3/4/8, bf16 and f32 output, GLU at the down shape) and K4
-    (bits 2/3/4, f32 and bf16 output) against their plain versions; ms per
-    launch beside the byte/operation bound, a dense bf16 torch.matmul of
-    the same shape and, at W4 on CUDA, PyTorch's int4 GEMM
+    """K3 (bits 2/3/4/8, bf16 and f32 output, bf16 activations and, at o
+    and down, f32 ones; GLU at the down shape) and K4 (bits 2/3/4, f32 and
+    bf16 output) against their plain versions, each K3 case with the
+    planner's regime, tile, chunk and split-K; ms per launch beside the
+    byte and bf16 tensor-core bounds, a dense bf16 torch.matmul of the same
+    shape, dequantize-once (``w.dequantize(bf16)`` + ``torch.matmul``, at
+    the largest t; timed only) and, at W4 on CUDA, PyTorch's int4 GEMM
     (``_weight_int4pack_mm``) on the same codes.  K3 f32 output within
-    1e-4 * max|y|, bf16 output within one bf16 ulp, GLU equal to the split
+    1e-4 * max|y|, bf16 output within one bf16 ulp and equal to the f32
+    output rounded once, two launches bit-identical, GLU equal to the split
     form ``glu_act`` + matmul bit for bit; K4 bit for bit.  The library's
     int4 GEMM rounds scale and zero to bf16 and dequantizes in bf16, so it
     is held within 2e-2 * max|y|."""
@@ -452,12 +511,21 @@ def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 6
             for t in tokens:
                 x = torch.randn((t, n_in), generator=gen, device=dev).to(torch.bfloat16)
                 glu_cases = (False, True) if name == "down" and bits == 4 else (False,)
-                for glu in glu_cases:
-                    xin = (torch.randn((t, 2 * n_in), generator=gen, device=dev)
-                           .to(torch.bfloat16) if glu else x)
+                # f32 activations (split into two bf16 halves by the kernel) at
+                # o and down; timed only in bf16, as the serving path runs it
+                x_dtypes = (torch.bfloat16, torch.float32) if name in ("o", "down") else (
+                    torch.bfloat16,)
+                for glu, x_dt in ((gl, dt) for gl in glu_cases for dt in x_dtypes):
+                    timed = x_dt == torch.bfloat16
+                    xin = (torch.randn((t, 2 * n_in), generator=gen, device=dev).to(x_dt)
+                           if glu else x.to(x_dt) if timed else
+                           torch.randn((t, n_in), generator=gen, device=dev))
                     before = KD.launches
                     y32 = KD.quantized_matmul(xin, w, out_dtype=torch.float32, glu=glu)
-                    y16 = KD.quantized_matmul(xin, w, glu=glu)
+                    y16 = KD.quantized_matmul(xin, w, out_dtype=torch.bfloat16, glu=glu)
+                    # two launches on the same input give the same bits
+                    repeat = bool(torch.equal(
+                        y32, KD.quantized_matmul(xin, w, out_dtype=torch.float32, glu=glu)))
                     ref = KD.dequant_matmul_plain(xin, w, glu=glu)
                     err = float((y32 - ref).abs().max())
                     scale = float(ref.abs().max())
@@ -472,8 +540,25 @@ def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 6
                     glu_split = None
                     if glu:
                         y_split = KD.quantized_matmul(
-                            KD.glu_act(xin[:, :n_in], xin[:, n_in:]), w)
+                            KD.glu_act(xin[:, :n_in], xin[:, n_in:]), w,
+                            out_dtype=torch.bfloat16)
                         glu_split = bool(torch.equal(y16, y_split))
+                    plan = KD._k3_plan(t, n_in, n, w.group_size, bits, x_f32=not timed,
+                                       glu=glu)
+                    case = (f"[phase5] K3 {name} {n}x{n_in} W{bits} t={t}"
+                            f"{' glu' if glu else ''}{'' if timed else ' f32 x'}: plan "
+                            f"{plan.regime} {plan.tile_t}x{plan.tile_n} tile, chunk "
+                            f"{plan.chunk_k}, split-K {plan.split}; max|dy| f32 {err:.3e} "
+                            f"(max|y| {scale:.3e}), bf16 {ulps:.2f} ulp, bf16 = rounded f32 "
+                            f"{same_rounding}, repeat bit-identical {repeat}"
+                            f"{'' if glu_split is None else f', = split form {glu_split}'}")
+                    assert err <= 1e-4 * scale, (case, err, scale)
+                    assert ulps <= 1.0 and same_rounding and repeat, case
+                    assert glu_split in (None, True), case
+                    if not timed:
+                        KD.launches = before
+                        log(case)
+                        continue
                     ms = time_it(lambda: KD.quantized_matmul(xin, w, glu=glu), reps=20)
                     plain_ms = time_it(lambda: KD.dequant_matmul_plain(xin, w, glu=glu), reps=3)
                     dense_ms = time_it(lambda: torch.matmul(x, w_dense.T), reps=20)
@@ -485,19 +570,22 @@ def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 6
                         lib_note = (f"; library int4 GEMM {lib_ms*1e3:.1f} us, max|dy| "
                                     f"{lib_err:.3e}")
                         assert lib_err <= 2e-2 * scale, (name, t, lib_err, scale)
+                    once_note = ""
+                    if t == tokens[-1] and not glu and not head:
+                        # dequantize-once (weights rounded to bf16, so not K3's
+                        # function): timed only, for the prefill-routing question
+                        once_ms = time_it(
+                            lambda: torch.matmul(x, w.dequantize(torch.bfloat16).T), reps=5)
+                        once_note = f"; dequantize-once + bf16 matmul {once_ms*1e3:.1f} us"
                     nbytes = (w.codes.numel() + 8 * w.scale.numel() + xin.numel() * 2
                               + t * n * 2)
-                    b_ms, b_by = bound_ms(nbytes, 2.0 * t * n * n_in, BF16_FLOP_PER_S)
-                    log(f"[phase5] K3 {name} {n}x{n_in} W{bits} t={t}{' glu' if glu else ''}: "
-                        f"max|dy| f32 {err:.3e} (max|y| {scale:.3e}), bf16 {ulps:.2f} ulp, "
-                        f"bf16 = rounded f32 {same_rounding}"
-                        f"{'' if glu_split is None else f', = split form {glu_split}'}; "
-                        f"{ms*1e3:.1f} us/launch, bound {b_ms*1e3:.1f} us "
-                        f"({b_by}), plain {plain_ms*1e3:.1f} us, dense bf16 matmul "
-                        f"{dense_ms*1e3:.1f} us{lib_note or ''}")
-                    assert err <= 1e-4 * scale, (name, bits, t, err, scale)
-                    assert ulps <= 1.0 and same_rounding, (name, bits, t, ulps)
-                    assert glu_split in (None, True), (name, bits, t)
+                    flops = 2.0 * t * n * n_in
+                    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+                    log(f"{case}; {ms*1e3:.1f} us/launch, bound {b_ms*1e3:.1f} us "
+                        f"({b_by}: bytes {nbytes / HBM_BYTES_PER_S * 1e6:.1f} us, bf16 "
+                        f"tensor-core ops {flops / BF16_FLOP_PER_S * 1e6:.1f} us), plain "
+                        f"{plain_ms*1e3:.1f} us, dense bf16 matmul "
+                        f"{dense_ms*1e3:.1f} us{lib_note or ''}{once_note}")
                     if name == "gate_up" and bits == 4 and t == tokens[0]:
                         k3.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                   max_abs_err=err, library_ms=lib_ms, dense_bf16_ms=dense_ms)
@@ -568,6 +656,24 @@ def attention_bytes(kv_bits, lens, slots, H, kvh, d):
     return 2 * tokens * per_tok + 4 * slots * (2 * H * d + 2 * fused) + 8 * slots
 
 
+def sdpa_gathered_ms(q, k_pool, v_pool, lens, table, kvh: int, time_it) -> float:
+    """ms of one ``scaled_dot_product_attention`` call over the pool's K/V
+    gathered dense (bf16, every slot padded to the table's length, keys
+    masked past each slot's length): the library yardstick beside K5."""
+    import torch
+
+    from tgq_torch.serve.kv_cache import gather_pools
+
+    slots, H, d = q.shape
+    kg, vg = gather_pools(k_pool, v_pool, None, None, table, kvh, torch.bfloat16)
+    kb, vb = (t.transpose(1, 2).contiguous() for t in (kg, vg))
+    qb = q.to(torch.bfloat16).reshape(slots, 1, H, d).transpose(1, 2).contiguous()
+    pos = torch.arange(kb.shape[2], device=q.device)
+    mask = (pos[None, :] < lens.clamp(min=1)[:, None].to(pos.dtype))[:, None, None, :]
+    return time_it(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=mask, scale=1.0, enable_gqa=True), reps=20)
+
+
 def phase6_attention(dev, k5: dict, slot_counts=(8, 64), max_len=2048, time_it=None,
                      geometry=dict(H=32, kvh=8, d=128)) -> None:
     """K5 against its plain version: bf16 / int8 / int4 pools, layer 2 of
@@ -627,10 +733,16 @@ def phase6_attention(dev, k5: dict, slot_counts=(8, 64), max_len=2048, time_it=N
                 nbytes = attention_bytes(kv_bits, lengths, slots, H, kvh, d)
                 flops = 4.0 * H * d * sum(lengths)
                 b_ms, b_by = bound_ms(nbytes, flops)
+                sdpa_note = ""
+                if kv_bits == 16 and soft_cap is None and not write and dev.type == "cuda":
+                    # the yardstick: SDPA over the same K/V gathered dense, padded
+                    # to the longest context with a length mask
+                    sdpa_ms = sdpa_gathered_ms(q, pk, pv, lens, table, kvh, time_it)
+                    sdpa_note = f", SDPA on the gathered bf16 K/V {sdpa_ms*1e3:.1f} us"
                 log(f"[phase6] K5 slots={slots} kv{kv_bits} cap={soft_cap} write={write}: "
                     f"max|do| {err:.3e}, allclose(1e-5) {ok}, pools identical {same_pools}; "
                     f"{ms*1e3:.1f} us/launch, bound {b_ms*1e3:.2f} us ({b_by}), plain "
-                    f"{plain_ms*1e3:.1f} us")
+                    f"{plain_ms*1e3:.1f} us{sdpa_note}")
                 assert ok, (slots, kv_bits, soft_cap, write, err)
                 assert same_pools, (slots, kv_bits, write)
                 del pools_k, pools_p, k, v, ks, vs
@@ -791,7 +903,8 @@ def paged_vs_recompute(params, cfg, dev, steps: int, rel_tol: float, fault=None,
 
 def kernel_class(name: str) -> str:
     """The bucket of a device kernel's name in the decode-step breakdown."""
-    for key, label in (("dequant_matmul_kernel", "K3 matmul"), ("stage_x_kernel", "K3 staging"),
+    for key, label in (("dequant_matmul_kernel", "K3 matmul"),
+                       ("dequant_matmul_reduce", "K3 split-K sum"),
                        ("a8_matmul_kernel", "K4 matmul"),
                        ("paged_attention_kernel", "K5 attention")):
         if key in name:
@@ -1026,6 +1139,7 @@ def main() -> int:
     if 4 in phases:
         phase4_cli(dev)
     if 5 in phases:
+        k3_group_check(dev)
         phase5_matmul(dev, k3, k4)
     if 6 in phases:
         phase6_attention(dev, k5)

@@ -211,3 +211,117 @@ def test_packed_from_numpy_keeps_static_fields(rng):
         3, 32, 64, 32, 8)
     np.testing.assert_array_equal(tw2.codes.numpy(), np.asarray(jw.codes))
     np.testing.assert_array_equal(tw2.bias.numpy(), np.asarray(jw.bias))
+
+
+# ------------------------------------------------------- K3's launch planner
+
+# (out, in) of the packed matmuls: Qwen3-8B (fused qkv, o, fused gate_up,
+# down, the W8 head padded to 512) at g128, tiny-qwen3 at g32
+K3_SHAPES = [(6144, 4096, 128, 4), (4096, 4096, 128, 4), (24576, 4096, 128, 4),
+             (4096, 12288, 128, 4), (152064, 4096, 128, 8),
+             (128, 64, 32, 4), (64, 64, 32, 3), (256, 64, 32, 2), (64, 128, 32, 4),
+             (512, 64, 32, 8)]
+
+
+@pytest.mark.parametrize("t", [1, 8, 64, 1024, 1500])
+@pytest.mark.parametrize("N,K,g,bits", K3_SHAPES)
+def test_k3_plan_covers_the_matmul(N, K, g, bits, t):
+    """Tiles cover every column and every input, the split-K ranges tile
+    the chunks in order, the workspace is the splits' f32 partials, and the
+    chunk and split (the order of the sums) are the same in every x mode,
+    so fused GLU and split GLU, bf16 and f32 outputs sum alike."""
+    plan = KD._k3_plan(t, K, N, g, bits)
+    assert plan.regime == ("decode" if t <= 8 else "prefill")
+    assert plan.tile_n == 128 and -(-N // plan.tile_n) * plan.tile_n >= N
+    assert -(-t // plan.tile_t) * plan.tile_t >= t
+    per = 8 if bits == 3 else 8 // bits
+    assert g % plan.chunk_k == 0 and plan.chunk_k == plan.units * per
+    assert plan.chunk_k % 16 == 0 and plan.units % 2 == 0
+    assert plan.n_chunks * plan.chunk_k == K
+    bounds = plan.split_bounds()
+    assert len(bounds) == plan.split >= 1
+    assert bounds[0][0] == 0 and bounds[-1][1] == plan.n_chunks
+    assert all(b0 < b1 for b0, b1 in bounds)
+    assert all(bounds[i][1] == bounds[i + 1][0] for i in range(len(bounds) - 1))
+    assert plan.workspace == (plan.split * t * N if plan.split > 1 else 0)
+    assert plan.smem <= 227 * 1024
+    for x_f32 in (False, True):
+        for glu in (False, True):
+            other = KD._k3_plan(t, K, N, g, bits, x_f32=x_f32, glu=glu)
+            assert (other.regime, other.units, other.n_chunks, other.split) == (
+                plan.regime, plan.units, plan.n_chunks, plan.split)
+            assert other.smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("g", [8, 24, 40])
+def test_k3_plan_rejects_groups_off_the_mma_depth(g):
+    with pytest.raises(ValueError, match="multiple of 16"):
+        KD._k3_plan(8, 120, 64, g, 4)
+
+
+# ------------------- the factored design's precondition: integral zero, codes in range
+
+def _check_packed(p, bits):
+    from tgq_torch.core.packing import unpack_rows
+
+    z = p.zero
+    assert torch.equal(z, torch.round(z)), "zero is not integral"
+    assert float(z.min()) >= 0 and float(z.max()) <= 2 ** bits - 1
+    q = unpack_rows(p.codes.T, bits, group_size=p.group_size, in_features=p.in_features)
+    assert int(q.min()) >= 0 and int(q.max()) <= 2 ** bits - 1
+
+
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_rtn_pack_gives_integral_zero(rng, bits, sym):
+    from tgq_torch.core.quant import QuantSpec
+    from tgq_torch.models.hf_import import rtn_pack
+
+    w = torch.from_numpy(rng.normal(size=(48, 128)).astype(np.float32))
+    _check_packed(rtn_pack(w, QuantSpec(bits=bits, group_size=32, sym=sym)), bits)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_jax_init_packed_params_give_integral_zero(bits):
+    from tgq.core.quant import QuantSpec as JSpec2
+    from tgq.models import PRESETS as JPRESETS
+    from tgq.models.hf_import import init_packed_params as j_init_packed
+
+    tree = j_init_packed(JPRESETS["tiny-qwen3"], JSpec2(bits=bits, group_size=32), seed=0)
+    leaves = jax.tree_util.tree_leaves(tree, is_leaf=lambda n: isinstance(n, JPacked))
+    packed = [packed_from_numpy(jax.tree.map(np.asarray, n)) for n in leaves
+              if isinstance(n, JPacked)]
+    assert len(packed) == 2 * 7
+    for p in packed:
+        _check_packed(p, bits)
+
+
+@pytest.mark.parametrize("mode", ["rtn", "pchol"])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_quantize_model_and_checkpoint_give_integral_zero(tmp_path, bits, mode):
+    from tgq.models import PRESETS as JPRESETS
+    from tgq.models import init_params as j_init_params
+    from tgq_torch.calib import QuantizeConfig, quantize_model
+    from tgq_torch.calib.data import synthetic_calibration
+    from tgq_torch.core.checkpoint import load_quantized, save_quantized
+    from tgq_torch.models import PRESETS
+    from tgq_torch.models.causal_lm import get_nested
+    from tgq_torch.models.convert import params_from_numpy
+
+    cfg = PRESETS["tiny-qwen3"]
+    params = params_from_numpy(jax.tree.map(
+        np.asarray, j_init_params(JPRESETS["tiny-qwen3"], jax.random.key(0))))
+    calib = synthetic_calibration(cfg.vocab_size, n_samples=4, seq_len=32, seed=42)
+    qcfg = QuantizeConfig(mode=mode, w_bits=bits, group_size=32, batch_size=4, block_size=32,
+                          eps=1e-6, threshold_method="energy", attn_impl="naive")
+    params, packed, _ = quantize_model(params, cfg, calib, qcfg, device="cpu")
+    assert len(packed) == 2 * 7
+    for p in packed.values():
+        _check_packed(p, bits)
+    save_quantized(str(tmp_path), params, packed, cfg, dataclasses.asdict(qcfg))
+    tree, _, _ = load_quantized(str(tmp_path), device="cpu")
+    for key in packed:
+        li, path = key.split(".", 2)[1:]
+        p = get_nested(tree["model"]["layers"][int(li)], path)
+        assert isinstance(p, PackedLinear)
+        _check_packed(p, bits)

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "tgq_pchol_panel_threads": ([], _I),
     "tgq_pchol_panel": ([_P] * 11 + [_I] * 5 + [_P], _I),
     "tgq_gptq_block": ([_P] * 6 + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _P], _I),
-    "tgq_dequant_matmul": ([_P, _I, _L] + [_P] * 5 + [_I] * 9 + [_P], _I),
+    "tgq_dequant_matmul": ([_P, _I, _L] + [_P] * 4 + [_I, _P] + [_I] * 11 + [_P], _I),
     "tgq_a8_matmul": ([_P] * 6 + [_I] * 8 + [_P], _I),
     "tgq_paged_attention": ([_P] * 11 + [_I] * 9 + [ctypes.c_float, _I, _P], _I),
 }

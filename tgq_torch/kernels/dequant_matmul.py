@@ -4,8 +4,12 @@ Port of ``tgq/kernels/dequant_matmul.py``.  ``quantized_matmul(x, w)``
 computes ``x @ Wᵀ (+ bias)`` for a :class:`PackedLinear` ``w``:
 
 - **K3** (``csrc/dequant_matmul.cu``, TPU original
-  ``_dequant_matmul_kernel``): bf16 or f32 activations, the codes
-  unpacked and dequantized as ``(q - z)·s`` next to the f32 accumulation.
+  ``_dequant_matmul_kernel``): bf16 or f32 activations; per group the
+  tensor cores take the exact bf16 ``q - z`` (``zero`` is integral)
+  against x with an f32 accumulator, and ``acc += s·d`` folds in the
+  group's scale, so only the order of the f32 sums differs from the plain
+  version.  :func:`_k3_plan` picks the regime (decode t <= 8, prefill),
+  the chunking and the split-K count.
   ``glu=True`` takes ``[gate | up]`` of width 2·in and multiplies by
   ``silu(gate)·up``, computed at load and rounded as :func:`glu_act`
   rounds it, so the fused form equals
@@ -24,6 +28,9 @@ order so the two agree bit for bit.  There is no layer-stacked mode: a
 per-layer ``PackedLinear`` (or a view ``stacked[li]``) is passed as is.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -120,6 +127,108 @@ def _check(x2: torch.Tensor, w: PackedLinear) -> None:
         raise ValueError(f"quantized_matmul: group {g} does not divide {w.in_features}")
 
 
+# K3's tiles and pipeline (csrc/dequant_matmul.cu::launch_k3_regime): 128
+# output columns a block; per x mode (bf16, f32, bf16 GLU, f32 GLU) the
+# token tile and the ring's stages; the blocks an SM holds by registers
+# (ptxas on sm_90a: decode about 94 registers x 128 threads, prefill about
+# 208 x 256)
+_K3_BN = 128
+_K3_CS = _K3_BN + 16         # code row stride in shared memory
+_K3_MAX_SMEM = 227 * 1024
+_K3_SM_SMEM = 228 * 1024     # shared memory of one SM
+_K3_SMS = 132                # H100 SXM streaming multiprocessors
+_K3_REGIMES = {"decode": dict(tile_t=(8, 8, 8, 8), stages=(4, 4, 4, 4), reg_blocks=5),
+               "prefill": dict(tile_t=(128, 64, 64, 64), stages=(3, 3, 3, 2), reg_blocks=1)}
+
+
+def _k3_smem(bits: int, units: int, tile_t: int, stages: int, x_f32: bool, glu: bool) -> int:
+    """Shared memory of K3's ring, as ``k3_layout`` in the .cu lays it out."""
+    per = 8 if bits == 3 else 8 // bits
+    kc = units * per
+    x_row = kc * (4 if x_f32 else 2) * (2 if glu else 1) + 16
+    conv_row = kc * 2 * (2 if x_f32 else 1) + 16 if (x_f32 or glu) else 0
+    stage = units * (3 if bits == 3 else 1) * _K3_CS + 2 * _K3_BN * 4 + tile_t * x_row
+    return stages * (-(-stage // 128) * 128) + tile_t * conv_row
+
+
+@dataclasses.dataclass(frozen=True)
+class K3Plan:
+    """How K3 runs one call: the regime and its token tile, ``units`` code
+    rows of one group per pipeline chunk (``chunk_k`` inputs), ``n_chunks``
+    chunks over K split into ``split`` contiguous ranges (split-K), the
+    shared memory a block takes and the f32 workspace the split-K sum
+    needs (elements, 0 when ``split == 1``)."""
+
+    regime: str
+    tile_t: int
+    tile_n: int
+    units: int
+    chunk_k: int
+    n_chunks: int
+    split: int
+    smem: int
+    workspace: int
+
+    def split_bounds(self) -> list[tuple[int, int]]:
+        """The chunk range of each split, as the kernel computes it."""
+        n, s = self.n_chunks, self.split
+        return [(n * i // s, n * (i + 1) // s) for i in range(s)]
+
+
+def _chunk_units(upg: int, per: int, kc: int) -> int:
+    """Code units of one group per chunk: the whole group if it holds at
+    most ``kc`` inputs, else the largest multiple of 16 that divides the
+    group's ``upg`` units and holds at most ``kc`` inputs (else the whole
+    group)."""
+    if upg * per <= kc:
+        return upg
+    fits = [u for u in range(16, kc // per + 1, 16) if upg % u == 0]
+    return fits[-1] if fits else upg
+
+
+@functools.lru_cache(maxsize=1024)
+def _k3_plan(t: int, K: int, N: int, g: int, bits: int, x_f32: bool = False,
+             glu: bool = False) -> K3Plan:
+    """K3's launch plan for t tokens through a (K → N) W``bits`` g``g``
+    matmul.  t <= 8 is decode, else prefill; chunks of up to 128 inputs
+    (fewer only where the ring would not fit shared memory); split-K where
+    the tiles leave part of one wave of resident blocks empty.  Raises
+    ``ValueError`` for what the kernel does not take: ``g % 16 != 0`` (the
+    mma's k-depth is 16)."""
+    if bits not in (2, 3, 4, 8):
+        raise ValueError(f"K3: bits {bits} (2, 3, 4 or 8)")
+    if g <= 0 or K % g:
+        raise ValueError(f"K3: group {g} does not divide in_features {K}")
+    if g % 16:
+        raise ValueError(f"K3: group size {g} is not a multiple of 16 (the mma k-depth)")
+    regime = "decode" if t <= 8 else "prefill"
+    cfg = _K3_REGIMES[regime]
+    per = 8 if bits == 3 else 8 // bits
+    upg = g // per
+    # the chunk and the split set the order of the sums: both are picked
+    # for every x mode at once, so fused GLU and f32 x sum as bf16 x does
+    modes = [(f32, gl) for f32 in (False, True) for gl in (False, True)]
+    for kc in (128, 64, 32, 16):
+        units = _chunk_units(upg, per, kc)
+        chunk_k = units * per
+        smems = [_k3_smem(bits, units, cfg["tile_t"][2 * f32 + gl], cfg["stages"][2 * f32 + gl],
+                          f32, gl) for f32, gl in modes]
+        if max(smems) <= _K3_MAX_SMEM:
+            break
+    else:
+        raise ValueError(f"K3: a chunk of group {g} does not fit shared memory")
+    mode = 2 * x_f32 + glu
+    n_chunks = (K // g) * (upg // units)
+    # split-K: as many splits as one wave of resident blocks holds (bf16 x's
+    # tiles), at least 2 chunks a split
+    tiles = max(1, -(-t // cfg["tile_t"][0]) * -(-N // _K3_BN))
+    resident = _K3_SMS * min(cfg["reg_blocks"], _K3_SM_SMEM // smems[0])
+    split = max(1, min(resident // tiles, n_chunks // 2))
+    return K3Plan(regime=regime, tile_t=cfg["tile_t"][mode], tile_n=_K3_BN, units=units,
+                  chunk_k=chunk_k, n_chunks=n_chunks, split=split, smem=smems[mode],
+                  workspace=split * t * N if split > 1 else 0)
+
+
 def quantized_matmul(x: torch.Tensor, w: PackedLinear, out_dtype=None,
                      glu: bool = False) -> torch.Tensor:
     """x: (..., in) [GLU: (..., 2·in)] → (..., out) in ``out_dtype``
@@ -153,9 +262,9 @@ def quantized_matmul(x: torch.Tensor, w: PackedLinear, out_dtype=None,
     y = torch.empty((t, m), dtype=y_dtype, device=x2.device)
     dev = x2.device.index if x2.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    vec = int(m % 4 == 0 and w.codes.data_ptr() % 4 == 0)
     y_bf16 = int(y_dtype == torch.bfloat16)
     if a8:
+        vec = int(m % 4 == 0 and w.codes.data_ptr() % 4 == 0)
         x8, a = quantize_activations(_glu_split(x2, n) if glu else x2)
         err = lib.tgq_a8_matmul(
             x8.data_ptr(), a.data_ptr(), w.codes.data_ptr(), w.scale.data_ptr(),
@@ -167,13 +276,19 @@ def quantized_matmul(x: torch.Tensor, w: PackedLinear, out_dtype=None,
         if x2.dtype not in (torch.float32, torch.bfloat16):
             x2 = x2.float()
         x2 = x2.contiguous()
-        # the kernel's staging pass: (ceil(t/8), K, 8) f32 activations
-        xt = torch.empty((-(-t // 8) * 8 * n,), dtype=torch.float32, device=x2.device)
+        if x2.data_ptr() % 16:  # the kernel copies x in 16-byte pieces
+            x2 = x2.clone()
+        x_f32 = x2.dtype == torch.float32
+        plan = _k3_plan(t, n, m, w.group_size, w.bits, x_f32=x_f32, glu=glu)
+        ws = (torch.empty((plan.workspace,), dtype=torch.float32, device=x2.device)
+              if plan.workspace else None)
+        vec = int(m % 16 == 0 and all(p.data_ptr() % 16 == 0
+                                      for p in (w.codes, w.scale, w.zero)))
         err = lib.tgq_dequant_matmul(
-            x2.data_ptr(), int(x2.dtype == torch.bfloat16), x2.shape[1], xt.data_ptr(),
-            w.codes.data_ptr(),
-            w.scale.data_ptr(), w.zero.data_ptr(), y.data_ptr(), y_bf16, t, n, m,
-            w.group_size, w.bits, int(glu), vec, dev, stream)
+            x2.data_ptr(), int(x_f32), x2.shape[1], w.codes.data_ptr(), w.scale.data_ptr(),
+            w.zero.data_ptr(), y.data_ptr(), y_bf16, None if ws is None else ws.data_ptr(),
+            t, n, m, w.group_size, w.bits, int(glu), plan.units, plan.split,
+            int(plan.regime == "prefill"), vec, dev, stream)
         _build.check(err, "dequant_matmul launch")
         launches += 1
     return _finish(y, w, out_dtype, lead)
