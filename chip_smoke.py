@@ -20,12 +20,15 @@ Phases:
   4. ``python -m tgq_torch.cli.quantize`` on tiny-qwen3.
   5. K3 (packed-weight matmul on the tensor cores, bits 2/3/4/8, GLU,
      bf16 and f32 activations) on groups of 32, 64 and one a row, then K3
-     and K4 (W4A8) against their plain versions at the Qwen3-8B serving
-     shapes, t = 8, 64, 1024, beside the library int4 GEMM, a dense bf16
-     matmul and dequantize-once.
-  6. K5 (paged decode attention) against its plain version: bf16, int8
-     and int4 pools, soft cap, the current-row write with a dead slot;
-     SDPA on the same K/V gathered dense beside it.
+     and K4 (W4A8 on the int8 tensor cores; bits 2/3/4) against their
+     plain versions at the Qwen3-8B serving shapes, t = 8, 64, 1024,
+     beside the library int4 GEMM, a dense bf16 matmul and
+     dequantize-once; K4 timed alone, with quantize_activations apart.
+  6. K5 (split-context paged decode attention) against its plain
+     version: bf16, int8 and int4 pools, soft cap, the current-row write
+     with a dead slot, lengths across split boundaries, GQA groups 1, 4
+     and 8, head_dim 64, 128 and 256; two launches bit-identical; SDPA on
+     the same K/V gathered dense beside every bf16 case.
   7. The serving main path at Qwen3-8B full width: 4-layer paged decode
      held against full-recompute ``forward``, then
      ``tgq_torch.cli.serve.run`` at 36 layers with kv_bits 16, 8 and
@@ -436,17 +439,18 @@ QWEN3_8B_MATMULS = (("qkv", 6144, 4096), ("o", 4096, 4096), ("gate_up", 24576, 4
 
 
 def k3_group_check(dev, n_out: int = 520, n_in: int = 1024, tokens=(8, 64)) -> None:
-    """K3 beyond the 128-input chunks of the serving shapes: groups of 32
-    and 64 (chunks of a whole small group, uc read at run time), one group
-    per row (g = in_features), and 520 output columns (a ragged last tile,
-    codes copied bytewise since rows are not 16-byte multiples); bits
-    2/3/4/8, bf16 and f32 x, GLU at W4.  The same limits as phase 5."""
+    """K3 and K4 beyond the 128-input chunks of the serving shapes: groups
+    of 32 and 64 (chunks of a whole small group, uc read at run time), one
+    group per row (g = in_features), and 520 output columns (a ragged last
+    tile, codes copied bytewise since rows are not 16-byte multiples); K3 at
+    bits 2/3/4/8, bf16 and f32 x, GLU at W4, K4 at bits 2/3/4.  The same
+    limits as phase 5."""
     import torch
 
     from tgq_torch.kernels import dequant_matmul as KD
 
     gen = torch.Generator(device=dev).manual_seed(55)
-    before = KD.launches
+    before, before_a8 = KD.launches, KD.launches_a8
     for g in (32, 64, -1):
         for bits in (2, 3, 4, 8):
             w = random_packed(n_out, n_in, bits, gen, dev, group=g)
@@ -475,8 +479,23 @@ def k3_group_check(dev, n_out: int = 520, n_in: int = 1024, tokens=(8, 64)) -> N
                 f"({'fixed' if plan.chunk_k == 128 else 'run-time'} build), t = {tokens}, bf16 / "
                 f"f32 x{', GLU' if bits == 4 else ''}: max|dy| / max|y| {worst:.2e}, bf16 = "
                 f"rounded f32, repeat bit-identical")
+            if bits == 8:
+                continue
+            # K4 on the same weights: bit for bit, f32 and bf16
+            w8 = dataclasses.replace(w, act_bits=8)
+            for t in tokens:
+                x8, a = KD.quantize_activations(
+                    torch.randn((t, n_in), generator=gen, device=dev).to(torch.bfloat16))
+                ref = KD.a8_matmul_plain(x8, a, w8)
+                assert torch.equal(KD.a8_matmul(x8, a, w8), ref), (g, bits, t)
+                assert torch.equal(KD.a8_matmul(x8, a, w8, out_dtype=torch.bfloat16),
+                                   ref.to(torch.bfloat16)), (g, bits, t)
+            plan = KD._k4_plan(tokens[0], n_in, n_out, w.group_size, bits)
+            log(f"[phase5] K4 {n_out}x{n_in} W{bits}A8 g{w.group_size}: chunk {plan.chunk_k} "
+                f"({'fixed' if plan.chunk_k == 128 else 'run-time'} build), t = {tokens}: f32 and "
+                f"bf16 output bit-exact")
     torch.cuda.synchronize() if dev.type == "cuda" else None
-    KD.launches = before
+    KD.launches, KD.launches_a8 = before, before_a8
 
 
 def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 64, 1024),
@@ -560,6 +579,8 @@ def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 6
                         log(case)
                         continue
                     ms = time_it(lambda: KD.quantized_matmul(xin, w, glu=glu), reps=20)
+                    if not glu:
+                        k3_ms = ms  # beside K4 at the same shape
                     plain_ms = time_it(lambda: KD.dequant_matmul_plain(xin, w, glu=glu), reps=3)
                     dense_ms = time_it(lambda: torch.matmul(x, w_dense.T), reps=20)
                     KD.launches = before
@@ -598,17 +619,25 @@ def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 6
                 exact = bool(torch.equal(y, ref))
                 # bf16 output, as the serving path runs it: the f32 result rounded once
                 exact16 = bool(torch.equal(KD.quantized_matmul(x, w8), ref.to(torch.bfloat16)))
+                repeat = bool(torch.equal(y, KD.a8_matmul(x8, a, w8)))
                 err = float((y - ref).abs().max())
-                ms = time_it(lambda: KD.quantized_matmul(x, w8), reps=20)
+                # the kernel alone, and the activation quantization (PyTorch ops) apart
+                ms = time_it(lambda: KD.a8_matmul(x8, a, w8, out_dtype=torch.bfloat16), reps=20)
+                qa_ms = time_it(lambda: KD.quantize_activations(x), reps=20)
                 plain_ms = time_it(lambda: KD.a8_matmul_plain(x8, a, w8), reps=3)
                 KD.launches_a8 = before
+                plan = KD._k4_plan(t, n_in, n, w.group_size, bits)
                 nbytes = (w.codes.numel() + 8 * w.scale.numel() + t * n_in + 4 * t + t * n * 2)
                 b_ms, b_by = bound_ms(nbytes, 2.0 * t * n * n_in, INT8_OP_PER_S)
-                log(f"[phase5] K4 {name} {n}x{n_in} W{bits}A8 t={t}: bit-exact {exact}, bf16 "
-                    f"output {exact16} (max|dy| {err:.3e}); {ms*1e3:.1f} us/launch (incl. "
-                    f"activation quantization), bound {b_ms*1e3:.1f} us ({b_by}), plain "
-                    f"{plain_ms*1e3:.1f} us")
-                assert exact and exact16, (name, bits, t, err, exact16)
+                log(f"[phase5] K4 {name} {n}x{n_in} W{bits}A8 t={t}: plan {plan.regime} "
+                    f"{plan.tile_t}x{plan.tile_n} tile, chunk {plan.chunk_k}, {plan.k_warps} k "
+                    f"warps; bit-exact {exact}, bf16 output {exact16}, repeat bit-identical "
+                    f"{repeat} (max|dy| {err:.3e}); kernel {ms*1e3:.1f} us/launch, "
+                    f"quantize_activations {qa_ms*1e3:.1f} us, int8 bound {b_ms*1e3:.1f} us "
+                    f"({b_by}: bytes {nbytes / HBM_BYTES_PER_S * 1e6:.1f} us, int8 ops "
+                    f"{2.0 * t * n * n_in / INT8_OP_PER_S * 1e6:.1f} us), K3 W{bits} same shape "
+                    f"{k3_ms*1e3:.1f} us, plain {plain_ms*1e3:.1f} us")
+                assert exact and exact16 and repeat, (name, bits, t, err, exact16, repeat)
                 if name == "gate_up" and bits == 4 and t == tokens[0]:
                     k4.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               max_abs_err=err, library_ms=None)
@@ -675,20 +704,24 @@ def sdpa_gathered_ms(q, k_pool, v_pool, lens, table, kvh: int, time_it) -> float
 
 
 def phase6_attention(dev, k5: dict, slot_counts=(8, 64), max_len=2048, time_it=None,
-                     geometry=dict(H=32, kvh=8, d=128)) -> None:
+                     geometry=dict(H=32, kvh=8, d=128),
+                     more_geometries=((8, 8, 128), (64, 8, 128), (32, 8, 64), (16, 4, 256)),
+                     more_len=512) -> None:
     """K5 against its plain version: bf16 / int8 / int4 pools, layer 2 of
-    a 4-layer pool, page 64, lengths 0, 1, 64, 65 ... max_len in a
-    shuffled page table; a soft-capped case; ``write_current`` with one
-    dead slot, pools then compared byte for byte.  Output within
-    rtol = atol = 1e-5 (both sides compute in f32 from the same stored
-    values; only the order of the sums differs)."""
+    a 4-layer pool, page 64, lengths 0, 1, 2, 64, 65 ... max_len and
+    lengths on the split boundaries of the planner's S, in a shuffled page
+    table; a soft-capped case; ``write_current`` with one dead slot, pools
+    then compared byte for byte; then GQA groups 1 and 8 and head_dim 64
+    and 256 (``more_geometries``: H, kvh, d) at 8 slots up to ``more_len``
+    tokens.  Output within rtol = atol = 1e-5 (both sides compute in f32
+    from the same stored values; only the order of the sums differs), two
+    launches bit-identical; SDPA on the gathered K/V beside every bf16
+    case."""
     import torch
 
     from tgq_torch.kernels import paged_attention as K5
 
     time_it = time_it or cuda_ms
-    H, kvh, d = geometry["H"], geometry["kvh"], geometry["d"]
-    mpps = -(-max_len // 64)
     gen = torch.Generator(device=dev).manual_seed(6)
     host_gen = torch.Generator().manual_seed(6)
     li = 2
@@ -696,56 +729,79 @@ def phase6_attention(dev, k5: dict, slot_counts=(8, 64), max_len=2048, time_it=N
     def views(pools, layer):
         return [None if p is None else p[layer] for p in pools]
 
+    def check(slots, lengths, kv_bits, soft_cap, write, H, kvh, d, mpps, label):
+        q, k, v, ks, vs, lens, table, kc, vc = attention_case(
+            dev, gen, slots, kv_bits, lengths, H=H, kvh=kvh, d=d, mpps=mpps)
+        live = torch.ones((slots,), dtype=torch.int32, device=dev)
+        live[2] = 0
+        pools_k = [t.clone() if t is not None else None for t in (k, v, ks, vs)]
+        pools_p = [t.clone() if t is not None else None for t in (k, v, ks, vs)]
+        kw = dict(num_kv_heads=kvh, attn_logits_soft_cap=soft_cap, write_current=write)
+        vk, vv, vks, vvs = views(pools_k, li)
+        before = K5.launches
+        out = K5.paged_decode_attention(q, vk, vv, vks, vvs, lens, table, kc, vc,
+                                        live=live, **kw)
+        # a second launch (the write repeats the same bytes) gives the same bits
+        repeat = bool(torch.equal(out, K5.paged_decode_attention(
+            q, vk, vv, vks, vvs, lens, table, kc, vc, live=live, **kw)))
+        pk, pv, pks, pvs = views(pools_p, li)
+        ref = K5.paged_decode_attention_plain(q, pk, pv, pks, pvs, lens, table, kc,
+                                              vc, live=live, **kw)
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        err = float((out - ref).abs().max())
+        ok = bool(torch.allclose(out, ref, rtol=1e-5, atol=1e-5))
+        same_pools = all(
+            a is None or torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            for a, b in zip(pools_k, pools_p))
+        ms = time_it(lambda: K5.paged_decode_attention(
+            q, vk, vv, vks, vvs, lens, table, kc, vc, live=live, **kw), reps=20)
+        plain_ms = time_it(lambda: K5.paged_decode_attention_plain(
+            q, pk, pv, pks, pvs, lens, table, kc, vc, live=live, **kw), reps=2)
+        K5.launches = before
+        nbytes = attention_bytes(kv_bits, lengths, slots, H, kvh, d)
+        flops = 4.0 * H * d * sum(lengths)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        sdpa_note = ""
+        if kv_bits == 16 and dev.type == "cuda":
+            # the yardstick: SDPA over the same K/V gathered dense, padded to
+            # the longest context with a length mask
+            sdpa_ms = sdpa_gathered_ms(q, pk, pv, lens, table, kvh, time_it)
+            sdpa_note = (f", SDPA on the gathered bf16 K/V {sdpa_ms*1e3:.1f} us "
+                         f"(K5 / SDPA {ms / sdpa_ms:.2f})")
+        plan = K5._k5_plan(slots, kvh, mpps, 64)
+        log(f"[phase6] K5 {label} slots={slots} H={H} kvh={kvh} d={d} kv{kv_bits} "
+            f"cap={soft_cap} write={write}: S {plan.splits}; max|do| {err:.3e}, allclose(1e-5) "
+            f"{ok}, pools identical {same_pools}, repeat bit-identical {repeat}; "
+            f"{ms*1e3:.1f} us/launch, bound {b_ms*1e3:.2f} us ({b_by}), plain "
+            f"{plain_ms*1e3:.1f} us{sdpa_note}")
+        assert ok, (label, slots, H, kvh, d, kv_bits, soft_cap, write, err)
+        assert same_pools and repeat, (label, slots, kv_bits, write, same_pools, repeat)
+        del pools_k, pools_p, k, v, ks, vs
+
+    H, kvh, d = geometry["H"], geometry["kvh"], geometry["d"]
+    mpps = -(-max_len // 64)
     for slots in slot_counts:
-        fixed = [0, 1, 64, 65, max_len, max_len - 1, 2, 130]
+        splits = K5._k5_plan(slots, kvh, mpps, 64).splits
+        # split boundaries: pool lengths of one tile, S tiles and just past them
+        fixed = [0, 1, 2, 33, 32 * splits + 1, max_len, 65, 130, 64, 32 * splits + 2,
+                 max_len - 1, 34]
         rnd = torch.randint(0, max_len + 1, (max(slots - len(fixed), 0),),
                             generator=host_gen).tolist()
-        lengths = (fixed + rnd)[:slots]
+        lengths = [min(n, max_len) for n in (fixed + rnd)[:slots]]
         for kv_bits in (16, 8, 4):
             for soft_cap, write in ((None, False), (30.0, False), (None, True)):
                 if soft_cap is not None and kv_bits != 16:
                     continue
-                q, k, v, ks, vs, lens, table, kc, vc = attention_case(
-                    dev, gen, slots, kv_bits, lengths, H=H, kvh=kvh, d=d, mpps=mpps)
-                live = torch.ones((slots,), dtype=torch.int32, device=dev)
-                live[2] = 0
-                pools_k = [t.clone() if t is not None else None for t in (k, v, ks, vs)]
-                pools_p = [t.clone() if t is not None else None for t in (k, v, ks, vs)]
-                kw = dict(num_kv_heads=kvh, attn_logits_soft_cap=soft_cap, write_current=write)
-                vk, vv, vks, vvs = views(pools_k, li)
-                before = K5.launches
-                out = K5.paged_decode_attention(q, vk, vv, vks, vvs, lens, table, kc, vc,
-                                                live=live, **kw)
-                pk, pv, pks, pvs = views(pools_p, li)
-                ref = K5.paged_decode_attention_plain(q, pk, pv, pks, pvs, lens, table, kc,
-                                                      vc, live=live, **kw)
-                torch.cuda.synchronize() if dev.type == "cuda" else None
-                err = float((out - ref).abs().max())
-                ok = bool(torch.allclose(out, ref, rtol=1e-5, atol=1e-5))
-                same_pools = all(
-                    a is None or torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-                    for a, b in zip(pools_k, pools_p))
-                ms = time_it(lambda: K5.paged_decode_attention(
-                    q, vk, vv, vks, vvs, lens, table, kc, vc, live=live, **kw), reps=20)
-                plain_ms = time_it(lambda: K5.paged_decode_attention_plain(
-                    q, pk, pv, pks, pvs, lens, table, kc, vc, live=live, **kw), reps=2)
-                K5.launches = before
-                nbytes = attention_bytes(kv_bits, lengths, slots, H, kvh, d)
-                flops = 4.0 * H * d * sum(lengths)
-                b_ms, b_by = bound_ms(nbytes, flops)
-                sdpa_note = ""
-                if kv_bits == 16 and soft_cap is None and not write and dev.type == "cuda":
-                    # the yardstick: SDPA over the same K/V gathered dense, padded
-                    # to the longest context with a length mask
-                    sdpa_ms = sdpa_gathered_ms(q, pk, pv, lens, table, kvh, time_it)
-                    sdpa_note = f", SDPA on the gathered bf16 K/V {sdpa_ms*1e3:.1f} us"
-                log(f"[phase6] K5 slots={slots} kv{kv_bits} cap={soft_cap} write={write}: "
-                    f"max|do| {err:.3e}, allclose(1e-5) {ok}, pools identical {same_pools}; "
-                    f"{ms*1e3:.1f} us/launch, bound {b_ms*1e3:.2f} us ({b_by}), plain "
-                    f"{plain_ms*1e3:.1f} us{sdpa_note}")
-                assert ok, (slots, kv_bits, soft_cap, write, err)
-                assert same_pools, (slots, kv_bits, write)
-                del pools_k, pools_p, k, v, ks, vs
+                check(slots, lengths, kv_bits, soft_cap, write, H, kvh, d, mpps, "group 4")
+    more_mpps = -(-more_len // 64)
+    for gH, gkvh, gd in more_geometries:
+        slots = 8
+        splits = K5._k5_plan(slots, gkvh, more_mpps, 64).splits
+        lengths = [min(n, more_len)
+                   for n in (0, 1, 33, 32 * splits + 1, more_len, 65, 200, more_len - 1)]
+        for kv_bits in (16, 8, 4):
+            check(slots, lengths, kv_bits, None, True, gH, gkvh, gd, more_mpps,
+                  f"group {gH // gkvh}")
     # the serving geometry: 8 slots x 192-token contexts, bf16 pools, with the
     # current-row write (no live gate: every slot writes), beside SDPA over
     # the same tokens gathered dense
@@ -1118,7 +1174,7 @@ def main() -> int:
           "source": "tgq_torch/kernels/csrc/dequant_matmul.cu",
           "replaces": "tgq/kernels/dequant_matmul.py:73", "library_ms": None}
     k4 = {"name": "a8_matmul", "route": "cuda",
-          "source": "tgq_torch/kernels/csrc/dequant_matmul.cu",
+          "source": "tgq_torch/kernels/csrc/a8_matmul.cu",
           "replaces": "tgq/kernels/dequant_matmul.py:108", "library_ms": None}
     k5 = {"name": "paged_attention", "route": "cuda",
           "source": "tgq_torch/kernels/csrc/paged_attention.cu",

@@ -1,8 +1,8 @@
 """Build and load the CUDA kernels.
 
-Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` (all started
-together) for ``sm_90a`` into an object with a plain C interface; the
-objects are linked into ``_build/<hash>/libtgq_kernels.so`` and loaded
+Each ``csrc/*.cu`` file (with the headers ``csrc/*.cuh``) is compiled by
+its own ``nvcc`` (all started together) for ``sm_90a`` into an object with
+a plain C interface; the objects are linked into ``_build/<hash>/libtgq_kernels.so`` and loaded
 with ``ctypes``.  The directory is keyed by a hash of the sources and
 flags, so the first call after a change rebuilds and later calls (and
 processes) reuse the library.  Nothing here runs at import time.
@@ -28,6 +28,7 @@ SOURCES = {
     "pchol_panel.cu": [],
     "gptq_block.cu": ["-fmad=false"],
     "dequant_matmul.cu": [],
+    "a8_matmul.cu": [],
     "paged_attention.cu": [],
 }
 
@@ -40,8 +41,8 @@ _SIGNATURES = {
     "tgq_pchol_panel": ([_P] * 11 + [_I] * 5 + [_P], _I),
     "tgq_gptq_block": ([_P] * 6 + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _P], _I),
     "tgq_dequant_matmul": ([_P, _I, _L] + [_P] * 4 + [_I, _P] + [_I] * 11 + [_P], _I),
-    "tgq_a8_matmul": ([_P] * 6 + [_I] * 8 + [_P], _I),
-    "tgq_paged_attention": ([_P] * 11 + [_I] * 9 + [ctypes.c_float, _I, _P], _I),
+    "tgq_a8_matmul": ([_P] * 6 + [_I] * 10 + [_P], _I),
+    "tgq_paged_attention": ([_P] * 13 + [_I] * 10 + [ctypes.c_float, _I, _P], _I),
 }
 
 
@@ -64,6 +65,9 @@ def library_path() -> Path:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
         h.update(" ".join(ARCH + COMMON + flags).encode())
+    for header in sorted(CSRC.glob("*.cuh")):  # included by the sources
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "libtgq_kernels.so"
 
 
@@ -106,15 +110,21 @@ def build() -> Path:
     return out
 
 
+def load(path) -> ctypes.CDLL:
+    """A kernel library with the argument types of the functions it has."""
+    handle = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in _SIGNATURES.items():
+        if hasattr(handle, fn):
+            getattr(handle, fn).argtypes = argtypes
+            getattr(handle, fn).restype = restype
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for fn, (argtypes, restype) in _SIGNATURES.items():
-            getattr(handle, fn).argtypes = argtypes
-            getattr(handle, fn).restype = restype
-        _lib = handle
+        _lib = load(build())
     return _lib
 
 

@@ -1,12 +1,10 @@
 // Packed-weight matmul for Hopper (sm_90a): y = x · Wᵀ with W stored as
 // K-major packed integer codes plus per-group f32 scale and zero.
 //
-// Replaces the TPU kernels in tgq/kernels/dequant_matmul.py:
-//   K3 `_dequant_matmul_kernel` (bf16/f32 activations, optional GLU input
-//      silu(gate)·up computed at load) -> dequant_matmul_kernel below;
-//   K4 `_a8_matmul_kernel` (W4A8: int8 activations times int8 (q - z),
-//      an exact int32 dot per group, scaled per group and per token)
-//      -> a8_matmul_kernel below.
+// Replaces the TPU kernel K3 `_dequant_matmul_kernel` of
+// tgq/kernels/dequant_matmul.py (bf16/f32 activations, optional GLU input
+// silu(gate)·up computed at load).  K4 (W4A8) is a8_matmul.cu, which shares
+// this file's load path through common.cuh.
 //
 // Layout (tgq_torch/core/packing.py): codes (K·bits/8, N) u8, packed along K
 // within each group of g inputs: int8 raw; int4 split-half (byte j of a group
@@ -57,44 +55,11 @@
 //   bits, and a bf16 output is the f32 one rounded once).  The host's planner
 //   (kernels/dequant_matmul.py::_k3_plan) picks the regime, uc and the split.
 //
-// K4 is the first, simpler design: 16 k-slices split each group's units; the
-// int8 activations of a chunk of units are staged in shared memory between
-// two barriers.  K4 keeps the JAX kernel's arithmetic order: per group an
-// exact int32 dot (slices add integer partials, order-free), then
-// acc += float(dot) · s[g, o] in group order with separately rounded multiply
-// and add, then one multiply by the token scale.  Its plain version
-// (kernels/dequant_matmul.py) rounds the same way, so the two agree bit for
-// bit.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int TT = 8;            // K4: tokens per block
-constexpr int CT = 8;            // K4: column threads, 4 columns each
-constexpr int COLS = CT * 4;     // K4: 32 columns per block
-constexpr int KS8 = 16;          // K4: k-slices
-constexpr int NT8 = CT * KS8;    // K4: 128 threads
-constexpr int MAX_UNITS = 64;    // K4: units per staged chunk
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-template <int BITS>
-struct Fmt {
-  // codes per unit
-  static constexpr int PER = BITS == 3 ? 8 : 8 / BITS;
-};
-
-// ---------------------------------------------------------------- K3
-
-constexpr int MAX_SMEM = 227 * 1024;
-
-// code row stride in shared memory for a bn-column tile: bn + 16 bytes, so
-// the 4 rows a warp's lanes read at once fall on distinct banks
-__host__ __device__ constexpr int code_stride(int bn) { return bn + 16; }
+using namespace tgq;
 
 // bytes of one token's raw x row of a chunk in shared memory (XM bit 0:
 // f32, bit 1: GLU [gate | up]), and of its bf16 conversion for the mma (hi,
@@ -131,32 +96,11 @@ struct K3Args {
   int y_bf16, t, K, N, g, uc, split, vec;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&r);
-}
 __device__ __forceinline__ uint32_t bsub2(uint32_t a, uint32_t b) {
   __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
                              *reinterpret_cast<__nv_bfloat162*>(&b));
   return *reinterpret_cast<uint32_t*>(&r);
 }
-__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
-
 // v rounded to bf16 (the activations' dtype), or kept (f32 activations)
 template <bool F32>
 __device__ __forceinline__ float rt(float v) {
@@ -171,21 +115,6 @@ __device__ __forceinline__ float glu1(float v, float u) {
   return rt<F32>(__fmul_rn(rt<F32>(__fmul_rn(v, sig)), u));
 }
 
-// 8x8 b16 matrices from shared memory: lane l gives the row address of
-// matrix l / 8; lane (gid, tig) receives row gid, elements 2·tig, 2·tig + 1
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint8_t* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const uint8_t* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -193,14 +122,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (e, v) of chunk position κ advanced past the end of run e
-__device__ __forceinline__ void wrap(int& e, int& v, int uc) {
-  while (v >= uc) {
-    v -= uc;
-    ++e;
-  }
 }
 
 // The A values of chunk positions (κ, κ+1) = field e of code rows v, v+1,
@@ -521,12 +442,8 @@ int launch_k3(const K3Args& a, int device, cudaStream_t stream) {
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   auto kern = dequant_matmul_kernel<BITS, XM, WC, WN, NTT, STAGES, UCF>;
   static bool opted_in[64] = {};
-  if (smem > 48 * 1024 && device >= 0 && device < 64 && !opted_in[device]) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    opted_in[device] = true;
-  }
+  const cudaError_t opt = allow_smem(kern, smem, device, opted_in);
+  if (opt != cudaSuccess) return (int)opt;
   const dim3 grid(((a.t + TILE_T - 1) / TILE_T) * ((a.N + BN - 1) / BN), a.split);
   kern<<<grid, 32 * WC * WN, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
@@ -570,149 +487,6 @@ int launch_k3_x(const K3Args& a, int xm, int prefill, int device, cudaStream_t s
   }
 }
 
-// ---------------------------------------------------------------- K4
-
-// 4 code bytes of packed row `row`, columns n0..n0+3 (0 past N)
-__device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ codes, long row,
-                                          int N, int n0, bool vec) {
-  const uint8_t* p = codes + row * (long)N + n0;
-  if (vec && n0 + 3 < N) return __ldg(reinterpret_cast<const uint32_t*>(p));
-  uint32_t v = 0;
-  for (int i = 0; i < 4; ++i)
-    if (n0 + i < N) v |= (uint32_t)__ldg(p + i) << (8 * i);
-  return v;
-}
-
-// the unit's byte rows (int3: lo-plane rows r and r + g/8, hi-plane row r)
-template <int BITS>
-__device__ __forceinline__ void load_unit(const uint8_t* __restrict__ codes, long gi, long r,
-                                          int g, int N, int n0, bool vec, uint32_t& b0,
-                                          uint32_t& b1, uint32_t& b2) {
-  if (BITS == 3) {
-    const long base = gi * (3L * g / 8);
-    b0 = load4(codes, base + r, N, n0, vec);
-    b1 = load4(codes, base + r + g / 8, N, n0, vec);
-    b2 = load4(codes, base + g / 4 + r, N, n0, vec);
-  } else {
-    b0 = load4(codes, gi * ((long)g * BITS / 8) + r, N, n0, vec);
-    b1 = b2 = 0;
-  }
-}
-
-// code e of column c of the unit (position r + e·step in the group)
-template <int BITS>
-__device__ __forceinline__ int code_of(uint32_t b0, uint32_t b1, uint32_t b2, int c, int e) {
-  const uint32_t x0 = (b0 >> (8 * c)) & 0xFF;
-  if (BITS == 8) return (int)x0;
-  if (BITS == 4) return (int)((x0 >> (4 * e)) & 0xF);
-  if (BITS == 2) return (int)((x0 >> (2 * e)) & 0x3);
-  const uint32_t lo = (((e & 1) ? (b1 >> (8 * c)) & 0xFF : x0) >> (2 * (e >> 1))) & 0x3;
-  const uint32_t hi = (((b2 >> (8 * c)) & 0xFF) >> e) & 0x1;
-  return (int)(lo | (hi << 2));
-}
-
-template <int BITS, typename YT>
-__global__ void __launch_bounds__(NT8)
-a8_matmul_kernel(const int8_t* __restrict__ x8, const float* __restrict__ ascale,
-                 const uint8_t* __restrict__ codes, const float* __restrict__ scale,
-                 const float* __restrict__ zero, YT* __restrict__ y, int t, int K, int N,
-                 int g, int uch, bool vec) {
-  constexpr int PER = Fmt<BITS>::PER;
-  __shared__ int xs[TT * PER * MAX_UNITS];
-  __shared__ int red[KS8 * TT * COLS];
-  const int tid = threadIdx.x;
-  const int ct = tid % CT, slice = tid / CT;
-  const int tok0 = blockIdx.x * TT;
-  const int col0 = blockIdx.y * COLS;
-  const int n0 = col0 + ct * 4;
-  const int step = g / PER, upg = g / PER, n_groups = K / g;
-  constexpr int OWN = TT * COLS / NT8;   // outputs each thread accumulates
-  float acc_own[OWN];
-#pragma unroll
-  for (int j = 0; j < OWN; ++j) acc_own[j] = 0.f;
-
-  for (int gi = 0; gi < n_groups; ++gi) {
-    int zi[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      zi[c] = n0 + c < N ? (int)__ldg(zero + (long)gi * N + n0 + c) : 0;
-    int dot[TT][4];
-#pragma unroll
-    for (int i = 0; i < TT; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dot[i][c] = 0;
-    for (int u0 = 0; u0 < upg; u0 += uch) {
-      __syncthreads();
-      const int n_stage = TT * PER * uch;
-      for (int i = tid; i < n_stage; i += NT8) {
-        const int rr = i % uch, e = (i / uch) % PER, tt = i / (uch * PER);
-        const int tok = tok0 + tt;
-        xs[i] = tok < t ? (int)x8[(long)tok * K + (long)gi * g + u0 + rr + (long)e * step] : 0;
-      }
-      __syncthreads();
-      for (int rr = slice; rr < uch; rr += KS8) {
-        uint32_t b0, b1, b2;
-        load_unit<BITS>(codes, gi, u0 + rr, g, N, n0, vec, b0, b1, b2);
-#pragma unroll
-        for (int e = 0; e < PER; ++e) {
-          int w[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) w[c] = code_of<BITS>(b0, b1, b2, c, e) - zi[c];
-#pragma unroll
-          for (int tt = 0; tt < TT; ++tt) {
-            const int xv = xs[(tt * PER + e) * uch + rr];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) dot[tt][c] += xv * w[c];
-          }
-        }
-      }
-    }
-    // exact integer sum of the slices, then one scaled f32 add per group
-#pragma unroll
-    for (int tt = 0; tt < TT; ++tt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) red[(slice * TT + tt) * COLS + ct * 4 + c] = dot[tt][c];
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < OWN; ++j) {
-      const int i = tid + j * NT8;
-      const int tt = i / COLS, c = i % COLS, col = col0 + c;
-      int d = 0;
-      for (int sl = 0; sl < KS8; ++sl) d += red[(sl * TT + tt) * COLS + c];
-      const float sg = col < N ? __ldg(scale + (long)gi * N + col) : 0.f;
-      acc_own[j] = __fadd_rn(acc_own[j], __fmul_rn(__int2float_rn(d), sg));
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < OWN; ++j) {
-    const int i = tid + j * NT8;
-    const int tt = i / COLS, c = i % COLS;
-    const int tok = tok0 + tt, col = col0 + c;
-    if (tok < t && col < N) store(y + (long)tok * N + col, __fmul_rn(acc_own[j], ascale[tok]));
-  }
-}
-
-int units_per_chunk(int g, int per) {
-  const int upg = g / per;
-  int u = upg & (-upg);  // largest power of two dividing the units of a group
-  return u < MAX_UNITS ? u : MAX_UNITS;
-}
-
-template <int BITS>
-int launch_k4(const int8_t* x8, const float* a, const uint8_t* codes, const float* scale,
-              const float* zero, void* y, bool y_bf16, int t, int K, int N, int g, bool vec,
-              cudaStream_t stream) {
-  const dim3 grid((t + TT - 1) / TT, (N + COLS - 1) / COLS);
-  const int uch = units_per_chunk(g, Fmt<BITS>::PER);
-  if (y_bf16)
-    a8_matmul_kernel<BITS, __nv_bfloat16><<<grid, NT8, 0, stream>>>(
-        x8, a, codes, scale, zero, static_cast<__nv_bfloat16*>(y), t, K, N, g, uch, vec);
-  else
-    a8_matmul_kernel<BITS, float><<<grid, NT8, 0, stream>>>(
-        x8, a, codes, scale, zero, static_cast<float*>(y), t, K, N, g, uch, vec);
-  return (int)cudaGetLastError();
-}
-
 bool bad_shape(int t, int K, int N, int g, int bits) {
   const int per = bits == 3 ? 8 : 8 / bits;
   return t < 0 || K <= 0 || N <= 0 || g <= 0 || K % g != 0 || g % per != 0 ||
@@ -749,23 +523,6 @@ int tgq_dequant_matmul(const void* x, int x_f32, long ldx, const uint8_t* codes,
     case 3: return launch_k3_x<3>(a, xm, prefill, device, s);
     case 4: return launch_k3_x<4>(a, xm, prefill, device, s);
     case 8: return launch_k3_x<8>(a, xm, prefill, device, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// K4.  x8 (t, K) int8, a (t,) f32 per-token scales; y (t, N) bf16 or f32.
-int tgq_a8_matmul(const int8_t* x8, const float* a, const uint8_t* codes, const float* scale,
-                  const float* zero, void* y, int y_bf16, int t, int K, int N, int g, int bits,
-                  int vec, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (bad_shape(t, K, N, g, bits)) return (int)cudaErrorInvalidValue;
-  if (t == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (bits) {
-    case 2: return launch_k4<2>(x8, a, codes, scale, zero, y, y_bf16, t, K, N, g, vec, s);
-    case 3: return launch_k4<3>(x8, a, codes, scale, zero, y, y_bf16, t, K, N, g, vec, s);
-    case 4: return launch_k4<4>(x8, a, codes, scale, zero, y, y_bf16, t, K, N, g, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

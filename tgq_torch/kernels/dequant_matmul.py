@@ -14,10 +14,12 @@ computes ``x @ Wᵀ (+ bias)`` for a :class:`PackedLinear` ``w``:
   ``silu(gate)·up``, computed at load and rounded as :func:`glu_act`
   rounds it, so the fused form equals
   ``quantized_matmul(glu_act(gate, up), w)`` bit for bit.
-- **K4** (same file, TPU original ``_a8_matmul_kernel``), chosen when
-  ``w.act_bits == 8 and w.bits in (2, 3, 4)``: per-token int8 activations
-  (:func:`quantize_activations`) times int8 ``q - z``, an exact int32 dot
-  per group, ``acc += dot·s[g, o]`` in group order, times the token scale.
+- **K4** (``csrc/a8_matmul.cu``, TPU original ``_a8_matmul_kernel``),
+  chosen when ``w.act_bits == 8 and w.bits in (2, 3, 4)``: per-token int8
+  activations (:func:`quantize_activations`) times int8 ``q - z`` on the
+  int8 tensor cores, an exact int32 dot per group, ``acc += dot·s[g, o]``
+  in group order, times the token scale.  :func:`_k4_plan` picks the
+  regime and the chunk.
 
 CUDA tensors launch the kernel at every token count (the JAX package's
 1024-token switch to dequantize-once is a TPU tuning and is not copied);
@@ -229,13 +231,124 @@ def _k3_plan(t: int, K: int, N: int, g: int, bits: int, x_f32: bool = False,
                   workspace=split * t * N if split > 1 else 0)
 
 
+# K4's tile configs (csrc/a8_matmul.cu::launch_config, by number): decode,
+# 32 columns x 8 tokens, a ring stage of 8 chunks with one warp on each
+# (int32 partials summed in shared memory), 2 stages; wide decode, where
+# 128-column tiles alone fill the card's SMs, 2 chunks a stage for 4 column
+# warps each, 4 stages; prefill, 128 x 128 tiles, 3 stages
+_K4_REGIMES = {"decode": dict(config=0, tile_t=8, tile_n=32, stages=2, k_warps=8),
+               "prefill": dict(config=1, tile_t=128, tile_n=128, stages=3, k_warps=1),
+               "decode_wide": dict(config=2, tile_t=8, tile_n=128, stages=4, k_warps=2)}
+_K4_WIDE_MIN_TILES = _K3_SMS   # 128-column decode tiles from this many on
+
+
+@dataclasses.dataclass(frozen=True)
+class K4Plan:
+    """How K4 runs one call: the regime, its tile, ``units`` code rows of
+    one group per pipeline chunk (``chunk_k`` inputs, a multiple of the
+    mma's k-depth 32), ``n_chunks`` chunks over K walked in order by every
+    block (no split-K), the warps that take a ring stage's chunks (one
+    each) and the shared memory a block takes."""
+
+    regime: str
+    config: int
+    tile_t: int
+    tile_n: int
+    units: int
+    chunk_k: int
+    n_chunks: int
+    k_warps: int
+    smem: int
+
+
+def _k4_smem(bits: int, units: int, tile_t: int, tile_n: int, stages: int,
+             k_warps: int) -> int:
+    """Shared memory of K4's ring (and its int32 reduction buffer), as
+    ``k4_layout`` in the .cu lays it out."""
+    per = 8 if bits == 3 else 8 // bits
+    stage = (units * (3 if bits == 3 else 1) * (tile_n + 16) + 2 * tile_n * 4
+             + tile_t * (units * per + 16))
+    red = k_warps * tile_n * 8 * 4 if k_warps > 1 else 0   # the int32 partials
+    return stages * k_warps * (-(-stage // 128) * 128) + red
+
+
+@functools.lru_cache(maxsize=1024)
+def _k4_plan(t: int, K: int, N: int, g: int, bits: int) -> K4Plan:
+    """K4's launch plan for t tokens through a (K → N) W``bits``A8 g``g``
+    matmul: t <= 8 is decode (128-column tiles where those alone fill the
+    card's SMs), else prefill; chunks of up to 128 inputs.
+    Raises ``ValueError`` for what the kernel does not take: bits other
+    than 2/3/4 (|q - z| must fit int8 with room), ``g % 32 != 0`` (the
+    int8 mma's k-depth)."""
+    if bits not in (2, 3, 4):
+        raise ValueError(f"K4: bits {bits} (2, 3 or 4)")
+    if g <= 0 or K % g:
+        raise ValueError(f"K4: group {g} does not divide in_features {K}")
+    if g % 32:
+        raise ValueError(f"K4: group size {g} is not a multiple of 32 (the int8 mma k-depth)")
+    if t > 8:
+        regime = "prefill"
+    else:
+        regime = "decode_wide" if -(-N // 128) >= _K4_WIDE_MIN_TILES else "decode"
+    cfg = _K4_REGIMES[regime]
+    per = 8 if bits == 3 else 8 // bits
+    upg = g // per
+    for kc in (128, 64, 32):
+        units = _chunk_units(upg, per, kc)
+        smem = _k4_smem(bits, units, cfg["tile_t"], cfg["tile_n"], cfg["stages"],
+                        cfg["k_warps"])
+        if smem <= _K3_MAX_SMEM:
+            break
+    else:
+        raise ValueError(f"K4: a chunk of group {g} does not fit shared memory")
+    return K4Plan(regime=regime, config=cfg["config"], tile_t=cfg["tile_t"],
+                  tile_n=cfg["tile_n"], units=units,
+                  chunk_k=units * per, n_chunks=(K // g) * (upg // units),
+                  k_warps=cfg["k_warps"], smem=smem)
+
+
+def a8_matmul(x8: torch.Tensor, a: torch.Tensor, w: PackedLinear,
+              out_dtype=torch.float32) -> torch.Tensor:
+    """K4 on activations already quantized by :func:`quantize_activations`:
+    (t, K) int8 codes and (t, 1) f32 scales → (t, N) f32 or bf16 (the f32
+    result rounded once), before the bias.  CUDA tensors launch the kernel;
+    CPU tensors run :func:`a8_matmul_plain`."""
+    global launches_a8
+    _check(x8, w)
+    if x8.dtype != torch.int8 or x8.dim() != 2 or x8.shape[1] != w.in_features:
+        raise ValueError("a8_matmul: x8 must be (t, in_features) int8")
+    if x8.device.type == "cpu":
+        return a8_matmul_plain(x8, a, w).to(out_dtype)
+    if x8.device.type != "cuda":
+        raise ValueError(f"a8_matmul: unsupported device {x8.device}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"a8_matmul: output dtype {out_dtype} (bf16 or f32)")
+    t, n, m = x8.shape[0], w.in_features, w.out_features
+    plan = _k4_plan(t, n, m, w.group_size, w.bits)
+    x8 = x8.contiguous()
+    if x8.data_ptr() % 16:  # the kernel copies x8 in 16-byte pieces
+        x8 = x8.clone()
+    a = a.float().reshape(t).contiguous()
+    y = torch.empty((t, m), dtype=out_dtype, device=x8.device)
+    vec = int(m % 16 == 0 and all(p.data_ptr() % 16 == 0 for p in (w.codes, w.scale, w.zero)))
+    dev = x8.device.index if x8.device.index is not None else torch.cuda.current_device()
+    err = _build.lib().tgq_a8_matmul(
+        x8.data_ptr(), a.data_ptr(), w.codes.data_ptr(), w.scale.data_ptr(),
+        w.zero.data_ptr(), y.data_ptr(), int(out_dtype == torch.bfloat16), t, n, m,
+        w.group_size, w.bits, plan.units, plan.config, vec, dev,
+        torch.cuda.current_stream(x8.device).cuda_stream)
+    _build.check(err, "a8_matmul launch")
+    launches_a8 += 1
+    return y
+
+
 def quantized_matmul(x: torch.Tensor, w: PackedLinear, out_dtype=None,
                      glu: bool = False) -> torch.Tensor:
     """x: (..., in) [GLU: (..., 2·in)] → (..., out) in ``out_dtype``
     (default x's dtype).  The bias, if any, is added in f32 after the
     kernel.  CUDA tensors launch K3 (or K4 for A8 weights); CPU tensors
     run the plain versions."""
-    global launches, launches_a8
+    global launches
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     n, m = w.in_features, w.out_features
@@ -246,13 +359,11 @@ def quantized_matmul(x: torch.Tensor, w: PackedLinear, out_dtype=None,
     _check(x2, w)
     a8 = w.act_bits == 8 and w.bits in (2, 3, 4)
     y_dtype = _out_dtype(w, x, out_dtype)
+    if a8:  # activations quantized per token outside the kernel, as in the JAX package
+        x8, a = quantize_activations(_glu_split(x2, n) if glu else x2)
+        return _finish(a8_matmul(x8, a, w, out_dtype=y_dtype), w, out_dtype, lead)
     if x2.device.type == "cpu":
-        if a8:
-            x8, a = quantize_activations(_glu_split(x2, n) if glu else x2)
-            y = a8_matmul_plain(x8, a, w)
-        else:
-            y = dequant_matmul_plain(x2, w, glu=glu)
-        return _finish(y.to(y_dtype), w, out_dtype, lead)
+        return _finish(dequant_matmul_plain(x2, w, glu=glu).to(y_dtype), w, out_dtype, lead)
     if x2.device.type != "cuda":
         raise ValueError(f"quantized_matmul: unsupported device {x2.device}")
     if y_dtype not in (torch.float32, torch.bfloat16):
@@ -263,32 +374,22 @@ def quantized_matmul(x: torch.Tensor, w: PackedLinear, out_dtype=None,
     dev = x2.device.index if x2.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     y_bf16 = int(y_dtype == torch.bfloat16)
-    if a8:
-        vec = int(m % 4 == 0 and w.codes.data_ptr() % 4 == 0)
-        x8, a = quantize_activations(_glu_split(x2, n) if glu else x2)
-        err = lib.tgq_a8_matmul(
-            x8.data_ptr(), a.data_ptr(), w.codes.data_ptr(), w.scale.data_ptr(),
-            w.zero.data_ptr(), y.data_ptr(), y_bf16, t, n, m, w.group_size, w.bits, vec,
-            dev, stream)
-        _build.check(err, "a8_matmul launch")
-        launches_a8 += 1
-    else:
-        if x2.dtype not in (torch.float32, torch.bfloat16):
-            x2 = x2.float()
-        x2 = x2.contiguous()
-        if x2.data_ptr() % 16:  # the kernel copies x in 16-byte pieces
-            x2 = x2.clone()
-        x_f32 = x2.dtype == torch.float32
-        plan = _k3_plan(t, n, m, w.group_size, w.bits, x_f32=x_f32, glu=glu)
-        ws = (torch.empty((plan.workspace,), dtype=torch.float32, device=x2.device)
-              if plan.workspace else None)
-        vec = int(m % 16 == 0 and all(p.data_ptr() % 16 == 0
-                                      for p in (w.codes, w.scale, w.zero)))
-        err = lib.tgq_dequant_matmul(
-            x2.data_ptr(), int(x_f32), x2.shape[1], w.codes.data_ptr(), w.scale.data_ptr(),
-            w.zero.data_ptr(), y.data_ptr(), y_bf16, None if ws is None else ws.data_ptr(),
-            t, n, m, w.group_size, w.bits, int(glu), plan.units, plan.split,
-            int(plan.regime == "prefill"), vec, dev, stream)
-        _build.check(err, "dequant_matmul launch")
-        launches += 1
+    vec = int(m % 16 == 0 and all(p.data_ptr() % 16 == 0
+                                  for p in (w.codes, w.scale, w.zero)))
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        x2 = x2.float()
+    x2 = x2.contiguous()
+    if x2.data_ptr() % 16:  # the kernel copies x in 16-byte pieces
+        x2 = x2.clone()
+    x_f32 = x2.dtype == torch.float32
+    plan = _k3_plan(t, n, m, w.group_size, w.bits, x_f32=x_f32, glu=glu)
+    ws = (torch.empty((plan.workspace,), dtype=torch.float32, device=x2.device)
+          if plan.workspace else None)
+    err = lib.tgq_dequant_matmul(
+        x2.data_ptr(), int(x_f32), x2.shape[1], w.codes.data_ptr(), w.scale.data_ptr(),
+        w.zero.data_ptr(), y.data_ptr(), y_bf16, None if ws is None else ws.data_ptr(),
+        t, n, m, w.group_size, w.bits, int(glu), plan.units, plan.split,
+        int(plan.regime == "prefill"), vec, dev, stream)
+    _build.check(err, "dequant_matmul launch")
+    launches += 1
     return _finish(y, w, out_dtype, lead)

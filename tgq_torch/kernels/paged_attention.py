@@ -7,6 +7,9 @@ index: in torch a layer's slice is a free view.  CUDA tensors launch
 ``csrc/paged_attention.cu``; CPU tensors run
 :func:`paged_decode_attention_plain`, which gathers the pages
 (``tgq_torch.serve.kv_cache.gather_pools``) and computes in f32.
+:func:`_k5_plan` picks how many blocks split each slot's context and
+:func:`_k5_ranges` gives each split's tokens, as the kernel derives them
+on the device from the slot's length.
 
 Not ported: ``alias_pools`` (XLA buffer ownership; torch writes in
 place) and the TP chunk-window mode (``w_live``, ``return_stats``;
@@ -14,6 +17,8 @@ ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import torch
@@ -21,6 +26,62 @@ import torch
 from tgq_torch.kernels import _build
 
 launches = 0  # kernel launches of paged_decode_attention (CUDA only)
+
+# K5's split of a slot's context (csrc/paged_attention.cu): 32-token tiles;
+# as many splits as give about one wave of resident blocks (4 a SM at
+# d = 128) over the (slot, kv head) pairs, and enough that the table's
+# longest context takes at most 8 tiles a split; never more than the
+# table's tiles, at most 64.  One wave, not two: on the H100, 8 slots of up
+# to 2048 tokens ran 38.2 us at S = 8 against 43.7 at 17 and 47.8 at 34
+# (sweep_k45, PERF.md), the merge's reads growing with S.
+_K5_TILE = 32
+_K5_TARGET_BLOCKS = 132 * 4  # H100 SXM: 132 SMs, 4 resident blocks each
+_K5_TILES_PER_SPLIT = 8
+_K5_MAX_SPLITS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class K5Plan:
+    """How K5 runs one call: ``splits`` blocks per (slot, kv head), each
+    taking a contiguous range of ``tile``-token tiles of the context."""
+
+    splits: int
+    tile: int
+
+
+@functools.lru_cache(maxsize=1024)
+def _k5_plan(slots: int, num_kv_heads: int, mpps: int, page: int) -> K5Plan:
+    """K5's split count from what the host knows without a sync: slots, kv
+    heads and the page table's width (the lengths stay on the device)."""
+    if min(slots, num_kv_heads, mpps, page) <= 0:
+        raise ValueError("K5: slots, kv heads, pages per slot and page size must be > 0")
+    max_tiles = -(-(mpps * page) // _K5_TILE)
+    splits = max(-(-_K5_TARGET_BLOCKS // (slots * num_kv_heads)),
+                 -(-max_tiles // _K5_TILES_PER_SPLIT))
+    return K5Plan(splits=max(1, min(splits, max_tiles, _K5_MAX_SPLITS)), tile=_K5_TILE)
+
+
+def _k5_ranges(pool_len: int, splits: int, tile: int = _K5_TILE) -> list[tuple[int, int]]:
+    """The token range [begin, end) of each split of a context of
+    ``pool_len`` pool tokens, as the kernel computes it: ``ceil(pool_len /
+    splits)`` rounded up to the tile; splits past the end are empty (begin
+    = end).  The kernel merges the first ``max(1, number of non-empty)``."""
+    chunk = -(-(-(-pool_len // splits)) // tile) * tile
+    return [(min(s * chunk, pool_len), min((s + 1) * chunk, pool_len)) for s in range(splits)]
+
+
+_counters: dict = {}  # per device: the int32 merge counters, zero between launches
+
+
+def _merge_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device``; the kernel sets
+    each back to 0 after its merge, so one buffer serves every launch on
+    the stream (two streams must not run K5 at once)."""
+    c = _counters.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _counters[device] = c
+    return c
 
 
 def _pool_len(lengths: torch.Tensor, has_current: bool) -> torch.Tensor:
@@ -160,19 +221,28 @@ def paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales, lengths, page_
     lengths = lengths.to(torch.int32).contiguous()
     page_indices = page_indices.to(torch.int32).contiguous()
     kc = vc = None
-    if k_current is not None:
-        kc = k_current.float().reshape(slots, -1).contiguous()
-        vc = v_current.float().reshape(slots, -1).contiguous()
+    if k_current is not None:  # rows read in pairs: 8-byte aligned
+        kc, vc = (c.float().reshape(slots, -1).contiguous() for c in (k_current, v_current))
+        kc, vc = (c.clone() if c.data_ptr() % 8 else c for c in (kc, vc))
     lv = None if live is None else live.to(torch.int32).contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged_decode_attention: q and the pools must be 16-byte aligned")
     out = torch.empty((slots, H, d), dtype=torch.float32, device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     spad = k_scales.shape[-1] if k_scales is not None else 0
+    mpps = page_indices.shape[1]
+    plan = _k5_plan(slots, num_kv_heads, mpps, page)
+    ws = counters = None
+    if plan.splits > 1:
+        ws = torch.empty((slots * num_kv_heads * plan.splits * H // num_kv_heads * (d + 2),),
+                         dtype=torch.float32, device=q.device)
+        counters = _merge_counters(q.device, slots * num_kv_heads)
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     err = lib.tgq_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scales), ptr(v_scales),
         lengths.data_ptr(), page_indices.data_ptr(), ptr(kc), ptr(vc), ptr(lv),
-        out.data_ptr(), slots, H, num_kv_heads, d, page, page_indices.shape[1], spad,
-        kv_bits, int(write_current), float(attn_logits_soft_cap or 0.0), dev,
+        out.data_ptr(), ptr(ws), ptr(counters), slots, H, num_kv_heads, d, page, mpps, spad,
+        kv_bits, plan.splits, int(write_current), float(attn_logits_soft_cap or 0.0), dev,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention launch")
     launches += 1

@@ -82,7 +82,8 @@ def build() -> dict:
         stem = name.replace(" ", "_")
         (out / f"{stem}.cu").write_text(_variant_source(subs))
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.ARCH, *_build.COMMON, "-shared", str(out / f"{stem}.cu"),
+            [_build._nvcc(), *_build.ARCH, *_build.COMMON, "-I", str(_build.CSRC), "-shared",
+             str(out / f"{stem}.cu"),
              "-o", str(out / f"lib{stem}.so")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
     libs = {}
