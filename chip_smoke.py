@@ -9,9 +9,15 @@ Phases:
      ``tgq_torch/kernels/csrc`` (one nvcc per source, in parallel).
   1. K1 (pivoted-Cholesky panel) against its plain version on the card at
      n = 4096 and 12288, on a well-separated spectrum and on an
-     outlier-channel spectrum.
+     outlier-channel spectrum: the whole sweep's perm, Lt, dhist and
+     pivhist bit for bit; then single panels (strip, d, done, perm,
+     pivhist bit for bit, two launches alike) at those widths, a ragged
+     last panel (37 steps), one with most strip rows in global memory,
+     n = 28672 and a ragged n = 4100.
   2. K2 (GPTQ block sweep) against its plain version at m = 1024, 4096,
-     12288, b = 256, W4 g128: codes and errors bit for bit.
+     12288, 28672 and a ragged 1000 with b = 256, and b = 128, 512 and
+     200 (not a multiple of 32): codes and errors bit for bit, two
+     launches alike.
   3. The main path at Qwen3-8B full width (2 layers, random weights):
      layer 0's q/k/v Hessian against an f64 Gram, then
      ``quantize_model(mode="pchol")`` on 32 x 2048 synthetic calibration
@@ -132,9 +138,37 @@ def outlier_spectrum(n: int, gen, dev):
     return (s[:, None] * c * s[None, :]).float()
 
 
-def phase1_pchol(dev, report: dict, sizes=(4096, 12288)) -> None:
+def bits_equal(x, y) -> bool:
+    """Same shape and the same bits (f32 compared as int32)."""
     import torch
 
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if x.dtype == torch.float32:
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    return bool(torch.equal(x, y))
+
+
+def k1_panel_case(K1, a, d, done, steps: int, label: str) -> None:
+    """One panel launched twice and run by the plain version: strip, d,
+    done, perm and pivhist bit for bit, and the two launches alike."""
+    before = K1.launches
+    got = K1.pchol_panel(a, d, done, panel=128, steps=steps)
+    again = K1.pchol_panel(a, d, done, panel=128, steps=steps)
+    K1.launches = before
+    want = K1.pchol_panel_plain(a, d, done, panel=128, steps=steps)
+    names = ("strip", "d", "done", "perm", "pivhist")
+    bad = [nm for nm, g, w in zip(names, got, want) if not bits_equal(g, w)]
+    rep = all(bits_equal(g, h) for g, h in zip(got, again))
+    log(f"[phase1] K1 panel {label} steps={steps}: kernel = plain bit for bit "
+        f"{not bad} (differs: {bad}); two launches identical {rep}")
+    assert not bad and rep, (label, bad, rep)
+
+
+def phase1_pchol(dev, report: dict, sizes=(4096, 12288), extra=(28672, 4100)) -> None:
+    import torch
+
+    from tgq_torch.kernels import _build
     from tgq_torch.kernels import pchol_panel as K1
     from tgq_torch.solver.pchol import _pchol_factors, _rank_f64, _sweep, trace_rank
 
@@ -159,12 +193,15 @@ def phase1_pchol(dev, report: dict, sizes=(4096, 12288)) -> None:
             same_perm = bool(torch.equal(perm_k, perm_p))
             first_diff = -1 if same_perm else int((perm_k != perm_p).nonzero()[0])
             err = float((lt_k - lt_p).abs().max())
+            sweep_bits = [bits_equal(x, y) for x, y in zip(res["kernel"][:4], res["plain"][:4])]
             log(f"[phase1] K1 n={n} {name}: sweep kernel {s_k*1e3:.1f} ms, plain "
                 f"{s_p*1e3:.1f} ms; recon kernel {rec_k:.3e} plain {rec_p:.3e}; "
                 f"trace_rank(1e-6) kernel {tr_k} plain {tr_p}; perm identical "
-                f"{same_perm} (first diff {first_diff}); max|dL| {err:.3e}")
+                f"{same_perm} (first diff {first_diff}); max|dL| {err:.3e}; "
+                f"perm, Lt, dhist, pivhist bit for bit {sweep_bits}")
             assert rec_k <= 1e-5 and rec_p <= 1e-5, (rec_k, rec_p)
             assert tr_k == tr_p, (tr_k, tr_p)
+            assert all(sweep_bits), sweep_bits
             if name == "separated":
                 assert same_perm, first_diff
             if n == sizes[-1] and name == "outlier":
@@ -179,6 +216,7 @@ def phase1_pchol(dev, report: dict, sizes=(4096, 12288)) -> None:
         a = h.contiguous()
         d = torch.diagonal(a).reshape(1, n).contiguous()
         done = torch.zeros((1, n), dtype=torch.float32, device=dev)
+        k1_panel_case(K1, a, d, done, 128, f"n={n} outlier")
         before = K1.launches
         ms = cuda_ms(lambda: K1.pchol_panel(a, d, done), reps=10)
         plain_ms = cuda_ms(lambda: K1.pchol_panel_plain(a, d, done), reps=1, warmup=0)
@@ -187,26 +225,57 @@ def phase1_pchol(dev, report: dict, sizes=(4096, 12288)) -> None:
         nbytes = 4 * (panel * n + 2 * n) + 4 * (panel * n + 2 * n + 2 * panel)
         flops = panel * (panel - 1) * n + 8 * panel * n
         b_ms, b_by = bound_ms(nbytes, flops)
-        log(f"[phase1] K1 n={n}: {ms:.3f} ms/launch (plain {plain_ms:.1f} ms), "
-            f"{n // panel} launches/sweep -> {ms * (n // panel):.1f} ms/sweep in "
-            f"the kernel; bound {b_ms*1e3:.2f} us ({b_by})")
+        log(f"[phase1] K1 n={n}: {ms:.3f} ms/launch ({ms / panel * 1e3:.2f} us a step; "
+            f"plain {plain_ms:.1f} ms), {n // panel} launches/sweep -> "
+            f"{ms * (n // panel):.1f} ms/sweep in the kernel; bound {b_ms*1e3:.2f} us ({b_by})")
         if n == sizes[-1]:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            # a ragged last panel: 37 steps, the rest of the strip zero
+            done = done.clone()
+            done[0, ::3] = 1.0
+            k1_panel_case(K1, a, torch.where(done > 0, 0.0, d), done, 37, f"n={n} ragged")
+            # strip rows that do not fit shared memory stay in global memory
+            # (n > ~59000 on this card): the plan for a limit that holds 40
+            sms, limit = _build.device_limits(_build.lib(), dev.index)
+            plan = K1._k1_plan(n, 128, sms, limit)
+            _build._limits[dev.index] = (sms, K1._K1_STATIC_SMEM + 4 * (2 * plan.tile + 128)
+                                         + 4 * 40 * plan.tile)
+            try:
+                rows = K1._k1_plan(n, 128, *_build._limits[dev.index]).rows_smem
+                k1_panel_case(K1, a, d, torch.zeros_like(done), 128,
+                              f"n={n}, {rows} strip rows in shared memory")
+            finally:
+                _build._limits[dev.index] = (sms, limit)
+            assert rows == 40, rows
         del h, a
+    # llama3-70b's intermediate width and a ragged width, one panel each
+    for n in extra:
+        a = separated_spectrum(n, gen, dev)
+        d = torch.diagonal(a).reshape(1, n).contiguous()
+        done = torch.zeros((1, n), dtype=torch.float32, device=dev)
+        k1_panel_case(K1, a, d, done, 128, f"n={n} separated")
+        if n == extra[0]:
+            before = K1.launches
+            ms = cuda_ms(lambda: K1.pchol_panel(a, d, done), reps=5)
+            K1.launches = before
+            log(f"[phase1] K1 n={n}: {ms:.3f} ms/launch ({ms / 128 * 1e3:.2f} us a step)")
+        del a
 
 
-def phase2_gptq(dev, report: dict, sizes=(1024, 4096, 12288)) -> None:
+def phase2_gptq(dev, report: dict, cases=((1024, 256), (4096, 256), (12288, 256),
+                                          (28672, 256), (4096, 128), (4096, 512),
+                                          (1000, 256), (1024, 200))) -> None:
     import torch
 
     from tgq_torch.core.quant import QuantSpec, expand_params, find_params
     from tgq_torch.kernels import gptq_block as K2
 
     spec = QuantSpec(bits=4, group_size=128, sym=False)
-    b = 256
     gen = torch.Generator(device=dev).manual_seed(1)
-    for m in sizes:
+    for m, b in cases:
         w = torch.randn((m, b), generator=gen, device=dev)
-        s_full, z_full = expand_params(find_params(w, spec), b)
+        s_full, z_full = expand_params(find_params(w, QuantSpec(
+            bits=4, group_size=128 if b % 128 == 0 else -1, sym=False)), b)
         s, z = s_full.contiguous(), z_full.contiguous()
         a = torch.randn((b, b), generator=gen, device=dev, dtype=torch.float64) / b ** 0.5
         r = torch.linalg.qr(a)[1]
@@ -215,9 +284,11 @@ def phase2_gptq(dev, report: dict, sizes=(1024, 4096, 12288)) -> None:
         r = r.float().contiguous()
         before = K2.launches
         q_k, e_k = K2.process_block(w, s, z, r, spec.min_q, spec.max_q)
+        q_k2, e_k2 = K2.process_block(w, s, z, r, spec.min_q, spec.max_q)
         q_p, e_p = K2.process_block_plain(w, s, z, r, spec.min_q, spec.max_q)
         mism = int((q_k != q_p).sum())
-        e_same = bool(torch.equal(e_k, e_p))
+        q_bits, e_bits = bits_equal(q_k, q_p), bits_equal(e_k, e_p)
+        rep = bits_equal(q_k, q_k2) and bits_equal(e_k, e_k2)
         e_err = float((e_k - e_p).abs().max())
         e_scale = float(e_p.abs().max())
         ms = cuda_ms(lambda: K2.process_block(w, s, z, r, spec.min_q, spec.max_q), reps=20)
@@ -227,12 +298,13 @@ def phase2_gptq(dev, report: dict, sizes=(1024, 4096, 12288)) -> None:
         nbytes = 4 * (3 * m * b + b * b) + 4 * (2 * m * b)
         flops = m * b * (b - 1) + 8 * m * b
         b_ms, b_by = bound_ms(nbytes, flops)
-        log(f"[phase2] K2 m={m} b={b}: code mismatches {mism}/{m*b}; e bit-exact "
-            f"{e_same} (max|de| {e_err:.3e}, max|e| {e_scale:.3e}); {ms:.3f} ms/launch "
-            f"(plain {plain_ms:.1f} ms); bound {b_ms*1e3:.2f} us ({b_by})")
-        assert mism == 0, mism
-        assert e_same, (e_err, e_scale)
-        if m == sizes[-1]:
+        log(f"[phase2] K2 m={m} b={b}: code mismatches {mism}/{m*b}; codes and e bit for "
+            f"bit {q_bits and e_bits} (max|de| {e_err:.3e}, max|e| {e_scale:.3e}); two "
+            f"launches identical {rep}; {ms:.4f} ms/launch ({ms / b * 1e3:.3f} us a step; "
+            f"plain {plain_ms:.1f} ms); bound {b_ms*1e3:.2f} us ({b_by})")
+        assert mism == 0 and q_bits and e_bits, (mism, e_err, e_scale)
+        assert rep
+        if (m, b) == (12288, 256):
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                           max_abs_err=e_err)
 

@@ -33,13 +33,15 @@ SOURCES = {
 }
 
 _lib = None
+_limits: dict[int, tuple[int, int]] = {}  # device -> (SMs, opt-in shared memory)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
-    "tgq_pchol_panel_max_blocks": ([_I, _I], _I),
-    "tgq_pchol_panel_threads": ([], _I),
-    "tgq_pchol_panel": ([_P] * 11 + [_I] * 5 + [_P], _I),
-    "tgq_gptq_block": ([_P] * 6 + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _P], _I),
+    "tgq_device_sms": ([_I], _I),
+    "tgq_device_smem_optin": ([_I], _I),
+    "tgq_pchol_panel_blocks_per_sm": ([_I, _I, _I], _I),
+    "tgq_pchol_panel": ([_P] * 11 + [_I] * 9 + [_P], _I),
+    "tgq_gptq_block": ([_P] * 6 + [_I] * 4 + [ctypes.c_float, ctypes.c_float, _I, _P], _I),
     "tgq_dequant_matmul": ([_P, _I, _L] + [_P] * 4 + [_I, _P] + [_I] * 11 + [_P], _I),
     "tgq_a8_matmul": ([_P] * 6 + [_I] * 10 + [_P], _I),
     "tgq_paged_attention": ([_P] * 13 + [_I] * 10 + [ctypes.c_float, _I, _P], _I),
@@ -131,3 +133,13 @@ def lib() -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def device_limits(lib, dev: int) -> tuple[int, int]:
+    """(SMs, opt-in shared memory bytes a block) of CUDA device ``dev``."""
+    if dev not in _limits:
+        sms, smem = lib.tgq_device_sms(dev), lib.tgq_device_smem_optin(dev)
+        if sms <= 0 or smem <= 0:
+            raise RuntimeError(f"cannot read the limits of CUDA device {dev}")
+        _limits[dev] = (sms, smem)
+    return _limits[dev]

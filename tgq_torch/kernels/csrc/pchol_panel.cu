@@ -17,18 +17,25 @@
 //
 // What bounds it on this card: latency, not bytes or FLOPs.  Each step needs
 // a global argmax over n before the next can start — `panel` dependent
-// grid-wide reductions per launch.  The strip (panel x n f32, 6 MB at
-// n = 12288) does not fit in shared memory; it stays in L2.
+// grid-wide reductions per launch, each followed by a dependent read of the
+// pivot's row of `a` (HBM) and of the strip's column at the pivot (L2).
 //
-// Design: one cooperative launch per panel.  Columns are spread over a grid
-// of co-resident blocks (grid-stride, 256 threads a block); each thread owns
-// its columns' d, done and strip entries for the whole panel, so the Schur
-// row correction reads only the thread's own strip column.  The only
-// cross-block data per step are the per-block argmax candidates and the
-// strip's column `piv` (k floats), read from L2 after one grid barrier.  The
-// next step's local argmax is fused into the update pass, so a step costs
-// exactly one grid barrier.  The cooperative launch guarantees the blocks
-// are co-resident, so the spin barrier cannot deadlock.
+// Design (the plan is `_k1_plan` in kernels/pchol_panel.py): one cooperative
+// block per SM at most, each owning a contiguous tile of columns.  The tile's
+// strip rows live in shared memory for the whole panel (rows past what fits
+// stay in global memory and are read from there, in the same loop), so the
+// Schur-row correction of a column reads shared memory only; d and done of
+// the tile live in shared memory too.  Each step's row is also written
+// transposed (column-major scratch), so the k strip entries at the next
+// pivots are one contiguous read.  A step's cross-block work is one
+// 64-bit max reduction a warp on the step's own slot — the key is an
+// order-preserving encoding of d (-0.0 made +0.0) over the inverted column
+// index, so the largest key is "max value, then smallest index" — and one
+// arrival count a block (a release reduction, no separate fence), which
+// thread 0 spins on with `ld.acquire` (no sleep).  The slots and counts are fresh for every step (zeroed by the
+// wrapper), so nothing is reset inside the launch.  After the arrival each
+// block reads only its tile's part of the pivot row and the k strip entries
+// at the pivot, both issued together.
 //
 // Arithmetic: every operation is rounded on its own, in the order of the
 // plain version (the Schur-row correction summed over t = 0..k-1, products
@@ -38,134 +45,140 @@
 // same bits, so their pivots and trace histories agree exactly.
 
 #include <cuda_runtime.h>
-#include <climits>
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 1024;
 
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
+// Order-preserving key: larger value first, then the smaller column index.
+__device__ __forceinline__ unsigned long long cand_key(float v, int j) {
+  if (v == 0.f) v = 0.f;  // -0.0 and +0.0 compare equal in the plain rule
+  const unsigned int u = __float_as_uint(v);
+  const unsigned int e = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)e << 32) | (0xFFFFFFFFu - (unsigned int)j);
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) { v = ov; i = oi; }
-  }
+__device__ __forceinline__ float key_value(unsigned long long key) {
+  const unsigned int e = (unsigned int)(key >> 32);
+  return __uint_as_float((e & 0x80000000u) ? (e & 0x7FFFFFFFu) : ~e);
 }
 
-// Block-wide (max, first index); the result lands in every thread.
-__device__ void block_argmax(float& v, int& i, float* sv, int* si) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  warp_argmax(v, i);
-  if (lane == 0) { sv[warp] = v; si[warp] = i; }
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    v = lane < nw ? sv[lane] : -INFINITY;
-    i = lane < nw ? si[lane] : INT_MAX;
-    warp_argmax(v, i);
-    if (lane == 0) { sv[0] = v; si[0] = i; }
-  }
-  __syncthreads();
-  v = sv[0];
-  i = si[0];
-  __syncthreads();
+__device__ __forceinline__ int key_index(unsigned long long key) {
+  return (int)(0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull));
 }
 
-// Sense-counting grid barrier: bar[0] counts arrivals, bar[1] is the
-// generation.  Every thread fences its global writes before the block
-// arrives; the last block to arrive resets the count and bumps the
-// generation.  The cooperative launch makes every block co-resident, so
-// each wait ends.
-__device__ void grid_barrier(unsigned int* bar, unsigned int nblocks) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == nblocks - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
+__device__ __forceinline__ void red_max(unsigned long long* p, unsigned long long v) {
+  asm volatile("red.relaxed.gpu.global.max.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void red_release_add(unsigned int* p) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(p) : "memory");
+}
+
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed64(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
 pchol_panel_kernel(const float* __restrict__ a, const float* __restrict__ d_in,
-                   const float* __restrict__ done_in, float* strip, float* d,
-                   float* done, int* perm, float* pivhist, float* cand_v,
-                   int* cand_i, unsigned int* bar, int n, int panel, int steps) {
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  extern __shared__ float s_col[];  // strip[:k, piv], panel floats
-  const int G = gridDim.x;
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = G * blockDim.x;
+                   const float* __restrict__ done_in, float* strip, float* d_out,
+                   float* done_out, int* perm, float* pivhist, float* strip_t,
+                   unsigned long long* keys, unsigned int* arrived, int n, int panel,
+                   int steps, int tile, int rows_smem) {
+  extern __shared__ float sm[];
+  float* s_strip = sm;                                // rows_smem x tile
+  float* s_d = s_strip + (size_t)rows_smem * tile;    // tile
+  float* s_done = s_d + tile;                         // tile
+  float* s_col = s_done + tile;                       // panel: strip[:k, piv]
+  __shared__ unsigned long long s_key;
 
-  float bv = -INFINITY;
-  int bi = INT_MAX;
-  for (int j = first; j < n; j += stride) {
-    const float dj = d_in[j], dn = done_in[j];
-    d[j] = dj;
-    done[j] = dn;
-    const float v = dn > 0.f ? -INFINITY : dj;
-    if (better(v, j, bv, bi)) { bv = v; bi = j; }
+  const int G = gridDim.x;
+  const int j0 = blockIdx.x * tile;
+  const int cols = min(tile, n - j0);
+  const int lane = threadIdx.x & 31;
+
+  // this thread's best candidate over its columns (key 0 = none)
+  unsigned long long best = 0ull;
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    const float dj = d_in[j0 + c], dn = done_in[j0 + c];
+    s_d[c] = dj;
+    s_done[c] = dn;
+    const unsigned long long key = cand_key(dn > 0.f ? -INFINITY : dj, j0 + c);
+    best = key > best ? key : best;
   }
 
   for (int k = 0; k < steps; ++k) {
-    const int par = (k & 1) * G;  // double-buffered candidates
-    block_argmax(bv, bi, red_v, red_i);
+    // publish: one atomicMax a warp, then one arrival a block
+    for (int off = 16; off > 0; off >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(0xffffffffu, best, off);
+      best = o > best ? o : best;
+    }
+    if (lane == 0 && best != 0ull) red_max(keys + k, best);
+    __syncthreads();  // the release below then covers the block's maxes and strip row k-1
     if (threadIdx.x == 0) {
-      cand_v[par + blockIdx.x] = bv;
-      cand_i[par + blockIdx.x] = bi;
+      red_release_add(arrived + k);
+      while (ld_acquire(arrived + k) < (unsigned int)G) {
+      }
+      s_key = ld_relaxed64(keys + k);
     }
-    grid_barrier(bar, G);
+    __syncthreads();
+    const unsigned long long key = s_key;
+    const int piv = key_index(key);
+    const float dk = fmaxf(key_value(key), 0.f);
 
-    bv = -INFINITY;
-    bi = INT_MAX;
-    for (int b = threadIdx.x; b < G; b += blockDim.x) {
-      const float v = __ldcg(cand_v + par + b);
-      const int i = __ldcg(cand_i + par + b);
-      if (better(v, i, bv, bi)) { bv = v; bi = i; }
-    }
-    block_argmax(bv, bi, red_v, red_i);
-    const int piv = bi;
-    const float dk = fmaxf(bv, 0.f);
+    // the pivot's row over this tile, and strip[:k, piv], issued together
+    const float* arow = a + (size_t)piv * n + j0;
     for (int t = threadIdx.x; t < k; t += blockDim.x)
-      s_col[t] = __ldcg(strip + (size_t)t * n + piv);
+      s_col[t] = __ldcg(strip_t + (size_t)piv * panel + t);
+    const int c0 = threadIdx.x;
+    const float a0 = c0 < cols ? __ldg(arow + c0) : 0.f;
     __syncthreads();
 
     const float inv = dk > 0.f ? __fdiv_rn(1.0f, __fsqrt_rn(fmaxf(dk, 1e-30f))) : 0.f;
     const float lpiv = __fsqrt_rn(dk);
-    const float* arow = a + (size_t)piv * n;
-    float* srow = strip + (size_t)k * n;
-    bv = -INFINITY;
-    bi = INT_MAX;
-    for (int j = first; j < n; j += stride) {
+    float* srow = strip + (size_t)k * n + j0;
+    best = 0ull;
+    for (int c = c0; c < cols; c += blockDim.x) {
+      const int j = j0 + c;
       float acc = 0.f;
-      for (int t = 0; t < k; ++t)
+      const int ts = min(k, rows_smem);
+      int t = 0;
+      for (; t + 8 <= ts; t += 8) {  // 8 products ahead of their adds
+        float p[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          p[i] = __fmul_rn(s_col[t + i], s_strip[(size_t)(t + i) * tile + c]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc = __fadd_rn(acc, p[i]);
+      }
+      for (; t < ts; ++t)
+        acc = __fadd_rn(acc, __fmul_rn(s_col[t], s_strip[(size_t)t * tile + c]));
+      for (int t = ts; t < k; ++t)  // rows that did not fit: this thread's own writes
         acc = __fadd_rn(acc, __fmul_rn(s_col[t], strip[(size_t)t * n + j]));
-      const float dn = done[j];
-      float l = __fmul_rn(__fsub_rn(arow[j], acc), inv);
+      const float av = c == c0 ? a0 : __ldg(arow + c);
+      const float dn = s_done[c];
+      float l = __fmul_rn(__fsub_rn(av, acc), inv);
       if (dn > 0.f) l = 0.f;
       if (j == piv) l = lpiv;
-      srow[j] = l;
+      if (k < rows_smem) s_strip[(size_t)k * tile + c] = l;
+      srow[c] = l;
+      strip_t[(size_t)j * panel + k] = l;
       const float nd = j == piv ? fmaxf(dn, 1.f) : dn;
-      const float dj = nd > 0.f ? 0.f : fmaxf(__fsub_rn(d[j], __fmul_rn(l, l)), 0.f);
-      done[j] = nd;
-      d[j] = dj;
-      const float v = nd > 0.f ? -INFINITY : dj;
-      if (better(v, j, bv, bi)) { bv = v; bi = j; }
+      const float dj = nd > 0.f ? 0.f : fmaxf(__fsub_rn(s_d[c], __fmul_rn(l, l)), 0.f);
+      s_done[c] = nd;
+      s_d[c] = dj;
+      const unsigned long long kk = cand_key(nd > 0.f ? -INFINITY : dj, j);
+      best = kk > best ? kk : best;
     }
     if (blockIdx.x == 0 && threadIdx.x == 0) {
       perm[k] = piv;
@@ -173,8 +186,11 @@ pchol_panel_kernel(const float* __restrict__ a, const float* __restrict__ d_in,
     }
   }
 
-  for (int k = steps; k < panel; ++k)
-    for (int j = first; j < n; j += stride) strip[(size_t)k * n + j] = 0.f;
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    d_out[j0 + c] = s_d[c];
+    done_out[j0 + c] = s_done[c];
+    for (int k = steps; k < panel; ++k) strip[(size_t)k * n + j0 + c] = 0.f;
+  }
   if (blockIdx.x == 0)
     for (int k = steps + threadIdx.x; k < panel; k += blockDim.x) {
       perm[k] = 0;
@@ -186,33 +202,56 @@ pchol_panel_kernel(const float* __restrict__ a, const float* __restrict__ d_in,
 
 extern "C" {
 
-// Largest cooperative grid for this kernel on `device`.
-int tgq_pchol_panel_max_blocks(int device, int panel) {
-  int sms = 0, per_sm = 0;
-  if (cudaSetDevice(device) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+// The device's SM count and the shared memory a block may opt in to.
+int tgq_device_sms(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
     return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, pchol_panel_kernel, kThreads, panel * sizeof(float)) != cudaSuccess)
-    return -1;
-  return sms * per_sm;
+  return v;
 }
 
-int tgq_pchol_panel_threads() { return kThreads; }
+int tgq_device_smem_optin(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess)
+    return -1;
+  return v;
+}
 
-// Launch one panel on `stream`; returns the CUDA error code (0 = launched).
+// Blocks of `threads` threads and `smem` bytes that fit one SM at once
+// (0 or less: the plan cannot be co-resident).
+int tgq_pchol_panel_blocks_per_sm(int device, int threads, int smem) {
+  int per_sm = 0;
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  if (cudaFuncSetAttribute(pchol_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pchol_panel_kernel, threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return per_sm;
+}
+
+// Launch one panel on `stream` with the plan's grid, tile, threads, shared
+// rows and bytes; `strip_t` is n x panel scratch (the strip transposed);
+// `keys` (panel u64) and `arrived` (panel u32) must be zero.
+// Returns the CUDA error code (0 = launched).
 int tgq_pchol_panel(const float* a, const float* d_in, const float* done_in,
                     float* strip, float* d, float* done, int* perm, float* pivhist,
-                    float* cand_v, int* cand_i, unsigned int* bar, int n, int panel,
-                    int steps, int grid, int device, void* stream) {
+                    float* strip_t, unsigned long long* keys, unsigned int* arrived, int n, int panel,
+                    int steps, int grid, int tile, int threads, int rows_smem, int smem,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {(void*)&a,      (void*)&d_in,    (void*)&done_in, (void*)&strip,
-                  (void*)&d,      (void*)&done,    (void*)&perm,    (void*)&pivhist,
-                  (void*)&cand_v, (void*)&cand_i,  (void*)&bar,     (void*)&n,
-                  (void*)&panel,  (void*)&steps};
+  err = cudaFuncSetAttribute(pchol_panel_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&a,     (void*)&d_in,  (void*)&done_in, (void*)&strip,
+                  (void*)&d,     (void*)&done,  (void*)&perm,    (void*)&pivhist,
+                  (void*)&strip_t, (void*)&keys,  (void*)&arrived, (void*)&n,     (void*)&panel,
+                  (void*)&steps, (void*)&tile,  (void*)&rows_smem};
   err = cudaLaunchCooperativeKernel((const void*)pchol_panel_kernel, dim3(grid),
-                                    dim3(kThreads), args, panel * sizeof(float),
+                                    dim3(threads), args, (size_t)smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

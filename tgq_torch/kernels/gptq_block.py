@@ -12,12 +12,15 @@ bit.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from tgq_torch.kernels import _build
 
 launches = 0  # kernel launches of process_block (CUDA only)
+_K2_MAX_COLS = 512  # widest block of the tiled kernel
+_K2_TILES = (32, 64, 96, 128)  # rows a block, one sweeping thread each
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -58,6 +61,40 @@ def process_block_plain(w, s, z, r, min_q: int, max_q: int):
     return q, e
 
 
+class K2Plan(NamedTuple):
+    tm: int    # rows a block (a multiple of 32 up to 128); 0 = the wide kernel (b > 512)
+    smem: int  # dynamic shared memory bytes a block of the tiled kernel
+
+
+def _k2_smem(tm: int, b: int) -> int:
+    """Row tile (tm x (B + 4)), two stages of R's 32 rows with the s and z
+    tiles (tm x 32 each), and 32 x (tm + 4) errors, with B = b rounded up
+    to 32 (``csrc/gptq_block.cu``)."""
+    pad = 32 * -(-b // 32)
+    return 4 * (tm * (pad + 4) + 2 * (32 * pad + 64 * tm) + 32 * (tm + 4))
+
+
+def _k2_plan(m: int, b: int, sms: int, smem_limit: int) -> K2Plan:
+    """Row tile of ``csrc/gptq_block.cu``: one block an SM, the tile that
+    needs the fewest waves of blocks over the SMs, the smaller on a tie (a
+    sweeping thread's chain is the same at every tile, the propagation work
+    a block grows with it).  Blocks wider than 512 columns take the wide
+    kernel."""
+    if b > _K2_MAX_COLS:
+        return K2Plan(tm=0, smem=0)
+    best = None
+    for tm in _K2_TILES:
+        smem = _k2_smem(tm, b)
+        if smem > smem_limit:
+            break
+        waves = -(-(-(-m // tm)) // sms)
+        if best is None or waves < best[0]:
+            best = (waves, K2Plan(tm=tm, smem=smem))
+    if best is None:
+        raise ValueError(f"process_block: b={b} does not fit {smem_limit} B of shared memory")
+    return best[1]
+
+
 def process_block(w, s, z, r, min_q: int, max_q: int):
     """In-block GPTQ sweep with the contract of :func:`process_block_plain`.
     CUDA tensors launch the kernel; CPU tensors run the plain version.
@@ -82,9 +119,10 @@ def process_block(w, s, z, r, min_q: int, max_q: int):
     q = torch.empty_like(w)
     e = torch.empty_like(w)
     dev = w.device.index if w.device.index is not None else torch.cuda.current_device()
+    plan = _k2_plan(m, b, *_build.device_limits(lib, dev))
     err = lib.tgq_gptq_block(
         w.data_ptr(), s.data_ptr(), z.data_ptr(), r.data_ptr(), q.data_ptr(),
-        e.data_ptr(), m, b, float(min_q), float(max_q), dev,
+        e.data_ptr(), m, b, plan.tm, plan.smem, float(min_q), float(max_q), dev,
         torch.cuda.current_stream(w.device).cuda_stream)
     _build.check(err, "process_block launch")
     launches += 1

@@ -9,12 +9,24 @@ trailing Schur update ``a -= stripᵀ·strip`` is the caller's
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from tgq_torch.kernels import _build
 
 launches = 0  # kernel launches of pchol_panel (CUDA only)
-_max_blocks: dict[tuple[int, int], int] = {}
+_fits: dict[tuple[int, int, int], int] = {}  # (device, threads, smem) -> blocks/SM
+_K1_MAX_THREADS = 1024
+_K1_STATIC_SMEM = 64  # the kernel's static shared memory (the step's key), rounded up
+
+
+class K1Plan(NamedTuple):
+    grid: int       # cooperative blocks, at most one an SM
+    tile: int       # columns a block (the last block may own fewer)
+    threads: int    # threads a block (a multiple of 32, >= tile up to 1024)
+    rows_smem: int  # strip rows held in shared memory (the rest in global)
+    smem: int       # dynamic shared memory bytes a block
 
 
 def pchol_panel_plain(a: torch.Tensor, d: torch.Tensor, done: torch.Tensor,
@@ -72,6 +84,26 @@ def _check(a, d, done, panel, steps):
         raise ValueError(f"pchol_panel: panel={panel} steps={steps} n={n}")
 
 
+def _k1_plan(n: int, panel: int, sms: int, smem_limit: int) -> K1Plan:
+    """Cooperative grid and column tiles of ``csrc/pchol_panel.cu``.
+
+    At most one block per SM, at least 32 columns a block; block g owns
+    columns [g*tile, min(n, (g+1)*tile)).  The tile's strip rows, d, done
+    and the pivot's strip column sit in shared memory; strip rows past what
+    ``smem_limit`` holds stay in global memory (``rows_smem < panel``)."""
+    blocks = max(1, min(sms, -(-n // 32)))
+    tile = -(-n // blocks)
+    grid = -(-n // tile)
+    threads = min(_K1_MAX_THREADS, 32 * -(-tile // 32))
+    fixed = 4 * (2 * tile + panel)
+    budget = smem_limit - _K1_STATIC_SMEM - fixed
+    if budget < 0:
+        raise ValueError(f"pchol_panel: n={n} needs {fixed} B of shared memory a block")
+    rows_smem = min(panel, budget // (4 * tile))
+    return K1Plan(grid=grid, tile=tile, threads=threads, rows_smem=rows_smem,
+                  smem=fixed + 4 * rows_smem * tile)
+
+
 def pchol_panel(a: torch.Tensor, d: torch.Tensor, done: torch.Tensor,
                 panel: int = 128, steps: int | None = None):
     """Run ``steps`` (default ``panel``) greedy pivot steps against the
@@ -95,26 +127,28 @@ def pchol_panel(a: torch.Tensor, d: torch.Tensor, done: torch.Tensor,
     lib = _build.lib()
     n = a.shape[0]
     dev = a.device.index if a.device.index is not None else torch.cuda.current_device()
-    key = (dev, panel)
-    if key not in _max_blocks:
-        mb = lib.tgq_pchol_panel_max_blocks(dev, panel)
-        if mb <= 0:
-            raise RuntimeError("pchol_panel: cannot size the cooperative grid")
-        _max_blocks[key] = mb
-    grid = min(-(-n // lib.tgq_pchol_panel_threads()), _max_blocks[key])
+    sms, smem_limit = _build.device_limits(lib, dev)
+    plan = _k1_plan(n, panel, sms, smem_limit)
+    key = (dev, plan.threads, plan.smem)
+    if key not in _fits:
+        _fits[key] = lib.tgq_pchol_panel_blocks_per_sm(dev, plan.threads, plan.smem)
+    if _fits[key] < 1 or plan.grid > sms * _fits[key]:
+        raise RuntimeError(f"pchol_panel: plan {plan} is not co-resident on device {dev}")
     strip = torch.empty((panel, n), dtype=torch.float32, device=a.device)
     d_out = torch.empty_like(d)
     done_out = torch.empty_like(done)
     perm = torch.empty((1, panel), dtype=torch.int32, device=a.device)
     ph = torch.empty((1, panel), dtype=torch.float32, device=a.device)
-    cand_v = torch.empty((2 * grid,), dtype=torch.float32, device=a.device)
-    cand_i = torch.empty((2 * grid,), dtype=torch.int32, device=a.device)
-    bar = torch.zeros((2,), dtype=torch.int32, device=a.device)  # barrier state
+    strip_t = torch.empty((n, panel), dtype=torch.float32, device=a.device)
+    # per step: a u64 argmax key, then (after all keys) a u32 arrival count; zero
+    slots = max(steps, 1)
+    sync = torch.zeros((3 * slots,), dtype=torch.int32, device=a.device)
     err = lib.tgq_pchol_panel(
         a.data_ptr(), d.data_ptr(), done.data_ptr(), strip.data_ptr(),
         d_out.data_ptr(), done_out.data_ptr(), perm.data_ptr(), ph.data_ptr(),
-        cand_v.data_ptr(), cand_i.data_ptr(), bar.data_ptr(), n, panel, steps,
-        grid, dev, torch.cuda.current_stream(a.device).cuda_stream)
+        strip_t.data_ptr(), sync.data_ptr(), sync.data_ptr() + 8 * slots, n, panel, steps,
+        plan.grid, plan.tile, plan.threads, plan.rows_smem, plan.smem, dev,
+        torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "pchol_panel launch")
     launches += 1
     return strip, d_out, done_out, perm, ph
