@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 0,5,6,7   # the serving slice only
+    python3 chip_smoke.py --phases 0,8       # GPT-2 / OPT, HF checkpoints, resume
 
 Phases:
   0. the card's name and power limit; build the CUDA kernels from
@@ -41,6 +42,16 @@ Phases:
      4 + A8 + an 8-bit head.  K3, K4 and K5's counters must rise.  Last,
      one 8-step decode chunk at 36 layers traced by ``torch.profiler``:
      wall, host dispatch and device-busy time per step, by kernel class.
+  8. Families and checkpoints: GPT-2 (12 layers) and OPT-1.3b (24 layers,
+     two shards with an index) written in their HF layouts with random
+     weights by the port's safetensors writer, then quantized through
+     ``python -m tgq_torch.cli.quantize`` with ``--hf_export
+     --resume_dir --profile_dir``: rel_error against RTN, PPL against the
+     unquantized model, K1/K2 launches against the counts the shapes
+     give, the export's logits against the in-memory model's bit for
+     bit, the trace's kernel names; K1 and K2 at the families' widths
+     against their plain versions; an untraced rerun for s/layer; GPT-2
+     stopped after layer 5 and resumed, codes bit for bit.
 
 Every mismatch raises; the script exits 0 only if every phase passed.
 The second-to-last line is a JSON object with one entry per kernel, the
@@ -1219,9 +1230,394 @@ def phase7_serving(dev, counts: dict, preset: str = "qwen3-8b", check_layers: in
     return results
 
 
+# ------------------------------------------- families and checkpoints (8)
+
+# rel_error over RTN's for a module whose pchol rank is below half its input
+# width: the card read at most 1.006 at eps 1e-6 (PERF.md section 2)
+LOW_RANK_RTN_CAP = 1.05
+
+def write_hf_model(path: str, preset: str, dev, n_files: int = 1):
+    """A checkpoint in the published HF layout of ``preset`` with random
+    bf16 weights (seed 0), written by the port's safetensors writer; GPT-2
+    gets its f32 causal-mask buffers too.  ``n_files`` > 1 splits it into
+    that many shards with an index.  Returns (cfg, bytes, seconds of the
+    flatten and the write)."""
+    import torch
+
+    from tgq_torch.models import PRESETS
+    from tgq_torch.models.causal_lm import init_params
+    from tgq_torch.models.hf_export import _gpt2_state_dict, _opt_state_dict, hf_config_dict
+    from tgq_torch.models.safetensors_io import save_checkpoint
+
+    cfg = PRESETS[preset]
+    params = init_params(cfg, seed=0, device=dev)
+    t0 = time.time()  # the export's work: flatten to HF names on the host, write
+    flatten = _gpt2_state_dict if cfg.family == "gpt2" else _opt_state_dict
+    state = flatten(params, torch.bfloat16)
+    del params
+    if cfg.family == "gpt2":
+        n = cfg.max_position_embeddings
+        mask = torch.tril(torch.ones((n, n))).reshape(1, 1, n, n)
+        for li in range(cfg.num_layers):
+            state[f"transformer.h.{li}.attn.bias"] = mask
+    total = sum(t.numel() * t.element_size() for t in state.values())
+    files = save_checkpoint(path, state, max_shard_bytes=int(0.6 * total) if n_files == 2
+                            else total)
+    assert files == n_files, (files, n_files)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config_dict(cfg), f)
+    return cfg, total, time.time() - t0
+
+
+def groups_in_features(cfg):
+    """Each quantization group's input width, and each module's."""
+    from tgq_torch.models.causal_lm import sequenced_groups
+
+    widths = [cfg.hidden_size, cfg.q_size, cfg.hidden_size, cfg.intermediate_size]
+    return widths, [w for w, g in zip(widths, sequenced_groups(cfg)) for _ in g]
+
+
+def group_of(cfg, mod: str) -> int:
+    """The quantization group whose input ``mod`` reads."""
+    from tgq_torch.models.causal_lm import sequenced_groups
+
+    return next(gi for gi, g in enumerate(sequenced_groups(cfg)) if mod in g)
+
+
+def layer0_grams(params, cfg, calib, dev, groups, bs: int = 8):
+    """Layer 0's Hessians of the given groups, from the unquantized model
+    and the run's calibration tokens (``HessianAccumulator``): each group's
+    input as the unquantized layer computes it, not as the quantize run
+    sees it after the earlier groups were quantized."""
+    from tgq_torch.calib.pipeline import _embed_batches, _group_input
+    from tgq_torch.models.causal_lm import rope_cache, tree_to
+    from tgq_torch.solver.hessian import HessianAccumulator
+
+    widths, _ = groups_in_features(cfg)
+    inps = _embed_batches(params, cfg, calib, bs, dev)
+    lp = tree_to(params["model"]["layers"][0], dev)
+    cos, sin = rope_cache(cfg, calib.shape[1], device=dev)
+    out = {}
+    for gi in groups:
+        acc = HessianAccumulator.init(widths[gi], device=dev)
+        for j in range(0, len(calib), bs):
+            acc.update(_group_input(lp, cfg, gi, inps[j:j + bs], cos, sin))
+        out[gi] = acc.finalize()
+    return out
+
+
+def k1_new_width(K1, h, label: str, time_it, sweep: bool) -> dict:
+    """K1 at a Gram of the run: one panel (and, with ``sweep``, the whole
+    sweep) bit for bit against the plain version, then one panel timed."""
+    import torch
+
+    from tgq_torch.solver.pchol import _sweep
+
+    n = h.shape[0]
+    a = h.contiguous()
+    d = torch.diagonal(a).reshape(1, n).contiguous()
+    done = torch.zeros((1, n), dtype=torch.float32, device=a.device)
+    before = K1.launches
+    k1_panel_case(K1, a, d, done, min(128, n), label)
+    if sweep:
+        got = _sweep(h, plain=False)
+        want = _sweep(h, plain=True)
+        same = [bits_equal(x, y) for x, y in zip(got, want)]
+        log(f"[phase8] K1 {label}: whole sweep ({-(-n // 128)} panels) perm, Lt, dhist, "
+            f"pivhist bit for bit {same}")
+        assert all(same), same
+    ms = time_it(lambda: K1.pchol_panel(a, d, done), reps=10)
+    plain_ms = time_it(lambda: K1.pchol_panel_plain(a, d, done), reps=1, warmup=0)
+    K1.launches = before
+    panel = 128
+    nbytes = 4 * (panel * n + 2 * n) + 4 * (panel * n + 2 * n + 2 * panel)
+    b_ms, b_by = bound_ms(nbytes, panel * (panel - 1) * n + 8 * panel * n)
+    log(f"[phase8] K1 n={n} ({label}): {ms:.4f} ms/launch, plain {plain_ms:.1f} ms, "
+        f"bound {b_ms * 1e3:.2f} us ({b_by})")
+    return {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def k2_new_width(K2, w, h, label: str, time_it, group_size: int = 128) -> dict:
+    """K2 on a real module's first column block, in the order and with the
+    factor pchol gives ``h``, the layer-0 Gram of the module's own group:
+    codes and e bit for bit against the plain version, two launches alike,
+    then timed."""
+    from tgq_torch.core.quant import QuantSpec, expand_params, find_params
+    from tgq_torch.solver.pchol import pchol_factor
+
+    spec = QuantSpec(bits=4, group_size=group_size, sym=False)
+    b = min(256, w.shape[1])
+    f = pchol_factor(h, eps=1e-6, want_rx=False)
+    perm = f.perm.long()
+    w = w.float()
+    s_full, z_full = expand_params(find_params(w, spec), w.shape[1])
+    wb = w[:, perm][:, :b].contiguous()
+    s, z = s_full[:, perm][:, :b].contiguous(), z_full[:, perm][:, :b].contiguous()
+    r = f.r_full[:b, :b].contiguous()
+    m = wb.shape[0]
+    before = K2.launches
+    q_k, e_k = K2.process_block(wb, s, z, r, spec.min_q, spec.max_q)
+    q_k2, e_k2 = K2.process_block(wb, s, z, r, spec.min_q, spec.max_q)
+    q_p, e_p = K2.process_block_plain(wb, s, z, r, spec.min_q, spec.max_q)
+    ok = bits_equal(q_k, q_p) and bits_equal(e_k, e_p)
+    rep = bits_equal(q_k, q_k2) and bits_equal(e_k, e_k2)
+    ms = time_it(lambda: K2.process_block(wb, s, z, r, spec.min_q, spec.max_q), reps=20)
+    plain_ms = time_it(lambda: K2.process_block_plain(wb, s, z, r, spec.min_q, spec.max_q),
+                       reps=2)
+    K2.launches = before
+    nbytes = 4 * (3 * m * b + b * b) + 4 * (2 * m * b)
+    b_ms, b_by = bound_ms(nbytes, m * b * (b - 1) + 8 * m * b)
+    log(f"[phase8] K2 m={m} b={b} ({label}, rank {f.rank}): codes and e bit for bit {ok}; "
+        f"two launches identical {rep}; {ms:.4f} ms/launch, plain {plain_ms:.1f} ms, "
+        f"bound {b_ms * 1e3:.2f} us ({b_by})")
+    assert ok and rep, (label, ok, rep)
+    return {"m": m, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def quantize_family(dev, counts: dict, tmp: str, preset: str, n_files: int, n_samples: int,
+                    group_size: int = 128):
+    """Phase 8 for one model: write its HF checkpoint, quantize it through
+    the CLI (export, resume directory and trace on), then hold the result
+    to RTN, to the unquantized PPL, to the shape-derived launch counts, to
+    its HF export and to its trace.  Returns what the kernel checks need
+    and the numbers to print."""
+    import numpy as np
+    import torch
+
+    from tgq_torch.calib.pipeline import _load_resume
+    from tgq_torch.cli.quantize import main
+    from tgq_torch.kernels import gptq_block as K2
+    from tgq_torch.kernels import pchol_panel as K1
+    from tgq_torch.models.causal_lm import forward
+    from tgq_torch.models.hf_import import load_hf_checkpoint
+
+    src = os.path.join(tmp, preset)
+    cfg, nbytes, write_s = write_hf_model(src, preset, dev, n_files)
+    log(f"[phase8] {preset}: wrote {nbytes / 1e9:.3f} GB ({n_files} file(s)) in "
+        f"{write_s:.1f} s")
+    out, res_dir, prof = (os.path.join(tmp, f"{preset}.{k}") for k in ("out", "resume", "prof"))
+    args = ["--model_id", src, "--device", dev.type, "--mode", "pchol", "--w_bits", "4",
+            "--group_size", str(group_size), "--dataset", "synthetic", "--n_samples",
+            str(n_samples), "--seq_len", str(cfg.seqlen), "--eps", "1e-6"]
+    t0 = time.time()
+    assert main(args + ["--mode", "baseline", "--save_path", out + ".base"]) == 0
+    with open(os.path.join(out + ".base", "results.json")) as f:
+        base_ppl = json.load(f)["metrics"]["baseline_ppl"]
+    log(f"[phase8] {preset}: unquantized PPL {base_ppl:.4f} ({time.time() - t0:.1f} s)")
+    K1.launches = K2.launches = 0
+    t0 = time.time()
+    assert main(args + ["--save_path", out, "--hf_export", "--resume_dir", res_dir,
+                        "--profile_dir", prof]) == 0
+    cli_s = time.time() - t0
+    k1_n, k2_n = K1.launches, K2.launches
+    counts["pchol_panel"] = counts.get("pchol_panel", 0) + k1_n
+    counts["gptq_block"] = counts.get("gptq_block", 0) + k2_n
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)
+    stats, metrics = res["layer_stats"], res["metrics"]
+    per_layer = metrics["phase_timing"]
+    q_ppl = metrics["quantized_ppl"]
+    widths, mod_widths = groups_in_features(cfg)
+    want_k1 = cfg.num_layers * sum(-(-w // 128) for w in widths)
+    want_k2 = cfg.num_layers * sum(-(-w // 256) for w in mod_widths)
+    log(f"[phase8] {preset}: CLI quantize {cli_s:.1f} s under the trace (pipeline "
+        f"{metrics['total_time']:.1f} s, {metrics['total_time'] / cfg.num_layers:.3f} s/layer"
+        f"); phases {json.dumps(per_layer)}")
+    log(f"[phase8] {preset}: launches pchol_panel {k1_n} (from the shapes {want_k1}), "
+        f"gptq_block {k2_n} (from the shapes {want_k2})")
+    if dev.type == "cuda":  # the wrappers count launches of the kernels only
+        assert (k1_n, k2_n) == (want_k1, want_k2), (k1_n, want_k1, k2_n, want_k2)
+    # PERF.md section 2: rel_error <= RTN's where pchol keeps at least half
+    # the columns in rank; below that the truncated solve can land above RTN
+    # in the JAX package too, and those modules are held to LOW_RANK_RTN_CAP
+    assert len(stats) == len(mod_widths) * cfg.num_layers
+    assert all(math.isfinite(st["rel_error"]) for st in stats), stats
+    n_in = mod_widths * cfg.num_layers
+    held = [st for st, n in zip(stats, n_in) if 2 * st["rank"] >= n]
+    low = [(st, n) for st, n in zip(stats, n_in) if 2 * st["rank"] < n]
+    worse = [st for st in held if st["rel_error"] > st["rtn_rel_error"]]
+    worse += [st for st, _ in low if st["rel_error"] > LOW_RANK_RTN_CAP * st["rtn_rel_error"]]
+    above = [st for st, _ in low if st["rel_error"] > st["rtn_rel_error"]]
+    worst = max(held, key=lambda st: st["rel_error"] / st["rtn_rel_error"])
+    top = max([st["rel_error"] / st["rtn_rel_error"] for st in above] or [0.0])
+    log(f"[phase8] {preset}: {len(held)} of {len(stats)} modules keep at least half their "
+        f"columns in rank, {len(worse)} of them above RTN (highest ratio {worst['name']} "
+        f"{worst['rel_error']:.4f} vs {worst['rtn_rel_error']:.4f}); {len(low)} below half "
+        f"(ranks {sorted(st['rank'] for st, _ in low)[:3]}...), {len(above)} of them above "
+        f"RTN, ratios up to {top:.4f} (cap {LOW_RANK_RTN_CAP}); quantized PPL {q_ppl:.4f} vs {base_ppl:.4f} "
+        f"({(q_ppl / base_ppl - 1) * 100:+.3f} %)")
+    assert not worse, worse
+    assert math.isfinite(q_ppl) and abs(q_ppl / base_ppl - 1) <= 0.05, (q_ppl, base_ppl)
+
+    # the export against the in-memory quantized model, which the resume
+    # directory holds layer by layer
+    t0 = time.time()
+    exported, cfg_e = load_hf_checkpoint(os.path.join(out, "hf"), device=dev)
+    import_s = time.time() - t0
+    params, cfg_src = load_hf_checkpoint(src, device=dev)
+    assert _load_resume(res_dir, params, {}, {"layer_stats": []}, cfg.num_layers) \
+        == cfg.num_layers
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 256)))
+    ids = ids.to(dev)
+    same = bits_equal(forward(exported, cfg_e, ids), forward(params, cfg_src, ids))
+    log(f"[phase8] {preset}: HF export imported in {import_s:.1f} s; its logits equal the "
+        f"quantized model's bit for bit {same}")
+    assert same
+    del exported, params
+
+    with open(os.path.join(prof, "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f).get("traceEvents", [])}
+    kernels = sorted(n for n in names if "pchol_panel_kernel" in n or "gptq_block" in n)
+    log(f"[phase8] {preset}: trace {os.path.getsize(os.path.join(prof, 'trace.json')) / 1e6:.1f}"
+        f" MB, K1/K2 kernels in it: {kernels}")
+    if dev.type == "cuda":
+        assert any("pchol_panel_kernel" in k for k in kernels), sorted(names)[:50]
+        assert any("gptq_block" in k for k in kernels), sorted(names)[:50]
+    return {"cfg": cfg, "src": src, "out": out, "stop_layer": cfg.num_layers // 2 - 1,
+            "traced_s_per_layer": metrics["total_time"] / cfg.num_layers,
+            "write_s": write_s, "import_s": import_s, "gb": nbytes / 1e9}
+
+
+def cli_inputs(run: dict, n_samples: int):
+    """The CLI run's QuantizeConfig (from its checkpoint's config.json)
+    and calibration tokens, to repeat its quantization in-process."""
+    from tgq_torch.calib import QuantizeConfig
+    from tgq_torch.calib.data import get_loaders
+
+    cfg = run["cfg"]
+    with open(os.path.join(run["out"], "config.json")) as f:
+        qcfg = QuantizeConfig(**json.load(f)["quant_config"])
+    calib = get_loaders("synthetic", None, n_samples, cfg.seqlen, seed=42,
+                        vocab_size=cfg.vocab_size)
+    return qcfg, calib
+
+
+def timed_quantize(dev, run: dict, n_samples: int) -> dict:
+    """The CLI run's quantization again, untraced, with every phase
+    synchronized (``PhaseTimers(sync=True)``): s/layer and the phase split."""
+    import torch
+
+    from tgq_torch.calib import quantize_model
+    from tgq_torch.kernels import gptq_block as K2
+    from tgq_torch.kernels import pchol_panel as K1
+    from tgq_torch.models.hf_import import load_hf_checkpoint
+    from tgq_torch.utils.profiling import PhaseTimers
+
+    cfg = run["cfg"]
+    qcfg, calib = cli_inputs(run, n_samples)
+    params, _ = load_hf_checkpoint(run["src"], device=dev)
+    before = (K1.launches, K2.launches)
+    timers = PhaseTimers(sync=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    quantize_model(params, cfg, calib, qcfg, device=dev, timers=timers)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.time() - t0
+    K1.launches, K2.launches = before
+    split = {k: round(v["total_s"] / cfg.num_layers, 4) for k, v in timers.summary().items()}
+    log(f"[phase8] {cfg.name}: untraced quantize {secs:.2f} s, {secs / cfg.num_layers:.3f} "
+        f"s/layer; per layer {json.dumps(split)}")
+    return {"s_per_layer": secs / cfg.num_layers, "split": split}
+
+
+def resume_check(dev, run: dict, n_samples: int) -> None:
+    """Stop after ``stop_layer``, resume in a fresh call, and hold every
+    module's codes to the uninterrupted CLI run's, bit for bit."""
+    import torch
+
+    from tgq_torch.calib import quantize_model
+    from tgq_torch.core.checkpoint import load_quantized
+    from tgq_torch.kernels import gptq_block as K2
+    from tgq_torch.kernels import pchol_panel as K1
+    from tgq_torch.models.causal_lm import get_nested
+    from tgq_torch.models.hf_import import load_hf_checkpoint
+
+    cfg = run["cfg"]
+    qcfg, calib = cli_inputs(run, n_samples)
+    ref, _, _ = load_quantized(run["out"], device=dev)
+    before = (K1.launches, K2.launches)
+    res_dir = run["out"] + ".stop"
+    t0 = time.time()
+    params, _ = load_hf_checkpoint(run["src"], device=dev)
+    _, _, log1 = quantize_model(params, cfg, calib, qcfg, device=dev, resume_dir=res_dir,
+                                stop_after_layer=run["stop_layer"])
+    params, _ = load_hf_checkpoint(run["src"], device=dev)
+    _, packed, log2 = quantize_model(params, cfg, calib, qcfg, device=dev,
+                                     resume_dir=res_dir)
+    K1.launches, K2.launches = before
+    names = [st["name"] for st in log2["layer_stats"]]
+    assert len(names) == len(set(names)) == len(packed), (len(names), len(packed))
+    assert len(log1["layer_stats"]) == len(packed) * (run["stop_layer"] + 1) // cfg.num_layers
+    diff = [k for k, pl in packed.items() if not torch.equal(
+        pl.codes, get_nested(ref["model"]["layers"][int(k.split(".")[1])],
+                             k.split(".", 2)[2]).codes)]
+    log(f"[phase8] {cfg.name}: stopped after layer {run['stop_layer']}, resumed: "
+        f"{len(packed)} modules, each named once in layer_stats; codes equal to the "
+        f"uninterrupted run's bit for bit in all but {diff} ({time.time() - t0:.1f} s)")
+    assert not diff, diff
+
+
+def phase8_families(dev, counts: dict, models=(("gpt2", 1), ("opt-1.3b", 2)),
+                    n_samples: int = 32, group_size: int = 128, time_it=None) -> dict:
+    """GPT-2 and OPT-1.3b from HF checkpoints through the quantize CLI, K1
+    and K2 at their widths, the export round trip, resume and the trace."""
+    from tgq_torch.calib.data import get_loaders
+    from tgq_torch.kernels import gptq_block as K2
+    from tgq_torch.kernels import pchol_panel as K1
+    from tgq_torch.models.causal_lm import get_nested
+    from tgq_torch.models.hf_import import load_hf_checkpoint
+
+    time_it = time_it or cuda_ms
+    t_phase = time.time()
+    k1_rows, k2_rows, runs = [], [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for preset, n_files in models:
+            run = quantize_family(dev, counts, tmp, preset, n_files, n_samples, group_size)
+            runs[preset] = run
+            cfg = run["cfg"]
+            # K1 and K2 at this family's widths, on Grams of the run
+            src_params = load_hf_checkpoint(run["src"], device=dev)[0]
+            calib = get_loaders("synthetic", None, n_samples, cfg.seqlen, seed=42,
+                                vocab_size=cfg.vocab_size)
+            mods = (("attn.c_attn", "attn.c_proj", "mlp.c_fc") if cfg.family == "gpt2"
+                    else ("self_attn.q_proj", "fc1"))
+            k1_groups = (0, 3)
+            grams = layer0_grams(src_params, cfg, calib, dev,
+                                 sorted({*k1_groups, *(group_of(cfg, m) for m in mods)}))
+            for gi in k1_groups:
+                h = grams[gi]
+                k1_rows.append(k1_new_width(K1, h, f"{preset} layer-0 group {gi}", time_it,
+                                            sweep=h.shape[0] in (768, 8192)))
+            lp = src_params["model"]["layers"][0]
+            for mod in mods:
+                gi = group_of(cfg, mod)
+                k2_rows.append(k2_new_width(K2, get_nested(lp, mod)["w"], grams[gi],
+                                            f"{preset} {mod} (group {gi})", time_it,
+                                            group_size))
+            del src_params, grams
+            run.update(timed_quantize(dev, run, n_samples))
+            if cfg.family == "gpt2":
+                resume_check(dev, run, n_samples)
+    for r in k1_rows:
+        log(f"[phase8] K1 n={r['n']}: {r['ms']:.4f} ms/launch, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.2f} ms")
+    for r in k2_rows:
+        log(f"[phase8] K2 m={r['m']}: {r['ms']:.4f} ms/launch, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.2f} ms")
+    for preset, run in runs.items():
+        log(f"[phase8] {preset}: {run['s_per_layer']:.3f} s/layer untraced "
+            f"({run['traced_s_per_layer']:.3f} in the traced CLI run), per layer "
+            f"{json.dumps(run['split'])}; checkpoint {run['gb']:.3f} GB written in "
+            f"{run['write_s']:.1f} s, the export imported in {run['import_s']:.1f} s")
+    log(f"[phase8] families and checkpoints: {time.time() - t_phase:.1f} s")
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (all by default)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -1273,6 +1669,8 @@ def main() -> int:
         phase6_attention(dev, k5)
     if 7 in phases:
         phase7_serving(dev, counts)
+    if 8 in phases:
+        phase8_families(dev, counts)
     kernels = [k1, k2, k3, k4, k5]
     for k in kernels:
         k["launches"] = counts.get(k["name"], 0)

@@ -1,5 +1,6 @@
 """tgq_torch stands alone: importing every module pulls in neither jax,
-ml_dtypes nor the tgq package, and entry points run on CUDA unless told
+ml_dtypes, the tgq package nor the HF packages (safetensors, transformers,
+huggingface_hub), and entry points run on CUDA unless told
 otherwise — without CUDA they raise instead of falling back to the CPU."""
 import os
 import subprocess
@@ -18,7 +19,8 @@ names = [m.name for m in pkgutil.walk_packages(tgq_torch.__path__, "tgq_torch.")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "tgq"))
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "tgq", "safetensors",
+                                    "transformers", "huggingface_hub"))
 print(len(names), bad)
 assert not bad, bad
 """

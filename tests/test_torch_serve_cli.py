@@ -73,11 +73,39 @@ def test_checkpoint_path(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mesh_model", "2"], ["--mesh_data", "2"], ["--distributed"],
                                   ["--kv_equalize"], ["--profile_dir", "x"]])
-def test_queued_flags_raise(flag):
+def test_queued_flags_raise(flag, tmp_path):
+    """The queued flags raise; --profile_dir, once queued, writes a trace
+    of the measured run."""
+    if flag[0] == "--profile_dir":
+        res = run(build_parser().parse_args(TINY + ["--profile_dir", str(tmp_path / "x")]))
+        assert res["total_tokens"] == 20
+        trace = json.load(open(tmp_path / "x" / "trace.json"))
+        assert trace["traceEvents"]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run(build_parser().parse_args(TINY + flag))
 
 
-def test_hf_path_raises():
-    with pytest.raises(ValueError, match="hf_import is queued"):
+def test_hf_path_raises(tmp_path, monkeypatch):
+    """A hub id that is not in the local HF cache raises ValueError."""
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
+    with pytest.raises(ValueError, match="not in the local HF cache"):
         run(build_parser().parse_args(["--model_id", "Qwen/Qwen3-8B", "--device", "cpu"]))
+
+
+def test_local_hf_directory_serves(tmp_path):
+    """A local HF checkpoint directory (llama family) serves, RTN-packed on
+    load; a GPT-2 one is refused by the engine, as in the JAX package."""
+    from tgq_torch.models import PRESETS
+    from tgq_torch.models.causal_lm import init_params
+    from tgq_torch.models.hf_export import export_hf
+
+    for name in ("tiny-qwen3", "tiny-gpt2"):
+        cfg = PRESETS[name]
+        export_hf(str(tmp_path / name), init_params(cfg, device="cpu"), cfg)
+    argv = ["--device", "cpu", "--n_requests", "2", "--prompt_len", "6", "--gen_tokens", "3",
+            "--max_slots", "2", "--page_size", "8", "--group_size", "32"]
+    res = run(build_parser().parse_args(argv + ["--model_id", str(tmp_path / "tiny-qwen3")]))
+    assert res["total_tokens"] == 6
+    with pytest.raises(NotImplementedError, match="llama-family"):
+        run(build_parser().parse_args(argv + ["--model_id", str(tmp_path / "tiny-gpt2")]))

@@ -1,22 +1,27 @@
 """Layer-sequential calibration + quantization (mirrors
-``tgq/calib/pipeline.py``, without the mesh, resume and spectral-check
-paths).
+``tgq/calib/pipeline.py``, without the mesh path).
 
 - The pipeline calls the decoder-layer pieces (attn_input / attn_core /
-  mlp_input / mlp_act) to get each quantization group's input directly.
+  mlp_input / mlp_act, per model family) to get each quantization group's
+  input directly.
 - Hessians accumulate on the device; pchol factorizes on the device
   (eigh / gptq / svd on the host in f64); the blockwise GPTQ loop runs on
   the device.
 - One layer at a time moves to the device and back.
 - Calibration activations are re-forwarded through the quantized layer
   to feed the next layer.
+- With a resume directory every finished layer is saved (the JAX
+  package's file layout), and a re-run restores the finished prefix.
 - The results log keeps the reference schema
   ({config, layer_stats:[{name, rank, time, rel_error}], metrics}).
+- ``spectral_consistency_check`` is the CLI's ``--mode test``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
+import os
 import time
 from typing import Any, Optional
 
@@ -31,6 +36,7 @@ from tgq_torch.models.causal_lm import (
     attn_input,
     attn_out_proj,
     decoder_layer,
+    embed_tokens,
     get_nested,
     glu_act,
     mlp_act,
@@ -42,6 +48,7 @@ from tgq_torch.models.causal_lm import (
     tree_to,
 )
 from tgq_torch.models.config import ModelConfig
+from tgq_torch.models.convert import numpy_from_tensor, tensor_from_numpy
 from tgq_torch.solver.factorize import (
     FactorResult,
     gptq_cholesky_factor,
@@ -132,6 +139,36 @@ def _stage_out(lp, cfg, x2):
     return x2 + mlp_out_proj(lp, cfg, mlp_act(lp, cfg, mlp_input(lp, cfg, x2)))
 
 
+def _layer_forward_staged(lp, cfg, x, cos, sin, attn_impl="auto"):
+    """A full layer forward through the same staged functions
+    ``quantize_layer`` takes its outputs from: bit-identical to an
+    uninterrupted run's propagated activations, which resume relies on."""
+    attn = _stage_attn(lp, cfg, x, cos, sin, attn_impl=attn_impl)
+    return _stage_out(lp, cfg, _stage_resid(lp, cfg, x, attn))
+
+
+def _group_input(lp, cfg, gi: int, x, cos, sin, attn_impl="auto"):
+    """Activation feeding quantization group ``gi`` of one decoder layer,
+    from the layer's input (the whole prefix recomputed)."""
+    if gi == 0:
+        return attn_input(lp, cfg, x)
+    attn = _stage_attn(lp, cfg, x, cos, sin, attn_impl=attn_impl)
+    if gi == 1:
+        return attn
+    x2 = _stage_resid(lp, cfg, x, attn)
+    return mlp_input(lp, cfg, x2) if gi == 2 else _stage_act(lp, cfg, x2)
+
+
+def _embed_batches(params, cfg, input_ids: np.ndarray, bs: int, dev) -> torch.Tensor:
+    """The calibration tokens' embeddings (learned positions included for
+    gpt2/opt), embedded ``bs`` sequences at a time on ``dev``."""
+    emb = {"model": {k: tree_to(params["model"][k], dev)
+                     for k in ("embed_tokens", "wpe") if k in params["model"]}}
+    ids = torch.from_numpy(np.asarray(input_ids, np.int64)).to(dev)
+    return torch.cat([embed_tokens(emb, ids[j : j + bs], cfg=cfg)
+                      for j in range(0, ids.shape[0], bs)])
+
+
 def _factorize(h_or_y, qcfg: QuantizeConfig, eps: float) -> FactorResult:
     if qcfg.mode == "eigh":
         return trunc_spectral_factor(h_or_y, eps=eps, method=qcfg.threshold_method,
@@ -157,8 +194,12 @@ def _rtn_quantize(w: torch.Tensor, spec: QuantSpec):
 @torch.no_grad()
 def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
                    qcfg: QuantizeConfig, timers: Optional[PhaseTimers] = None,
-                   name_prefix: str = ""):
+                   name_prefix: str = "", attn: Optional[list[torch.Tensor]] = None):
     """Quantize one decoder layer's four sequential groups.
+
+    ``attn``: group 1's inputs, one (batch, seq, q_size) tensor per
+    calibration batch, used in place of the attention this layer computes
+    (a test gives the JAX package's, to isolate the attention's numerics).
 
     Returns (lp, outs, module_stats, packed): outs are the quantized
     layer's outputs for every calibration batch (the next layer's
@@ -183,8 +224,8 @@ def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
 
         if staged and gi == 1:
             with timers.phase("stage_fwd"):
-                attn_l = [_stage_attn(lp, cfg, inps[j : j + bs], cos, sin,
-                                      attn_impl=qcfg.attn_impl) for j in idx]
+                attn_l = attn or [_stage_attn(lp, cfg, inps[j : j + bs], cos, sin,
+                                              attn_impl=qcfg.attn_impl) for j in idx]
         elif staged and gi == 2:
             with timers.phase("stage_fwd"):
                 x2_l = [_stage_resid(lp, cfg, inps[j : j + bs], attn_l[jj])
@@ -207,7 +248,7 @@ def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
                                              seed=qcfg.seed, device=inps.device)
             else:
                 acc = HessianAccumulator.init(in_f, device=inps.device)
-            fused_t = (gi == 3 and qcfg.mode != "svd"
+            fused_t = (gi == 3 and cfg.family == "llama" and qcfg.mode != "svd"
                        and "b" not in get_nested(lp, "mlp.gate_proj"))
             with timers.phase("accumulate"):
                 for jj, j in enumerate(idx):
@@ -273,6 +314,143 @@ def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
     return lp, outs, module_stats, packed
 
 
+def _save_resume_layer(resume_dir: str, li: int, layer: Params,
+                       packed: dict[str, PackedLinear], log: dict) -> None:
+    """Save one finished layer (its written-back weights, its packed
+    linears and its layer_stats) and advance ``progress.json``, each file
+    replaced atomically.  The layout is the JAX package's: ``layer_<i>.npz``
+    with bf16 leaves as ``__bf16__<path>`` uint16 bits and packed linears as
+    ``__packed_export__layers.<i>.<path>.{codes,scale,zero,bias,__packed__}``."""
+    os.makedirs(resume_dir, exist_ok=True)
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node, prefix=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}.")
+        elif isinstance(node, PackedLinear):
+            for leaf in ("codes", "scale", "zero", "bias"):
+                if getattr(node, leaf) is not None:
+                    flat[f"{prefix}{leaf}"] = numpy_from_tensor(getattr(node, leaf))
+            flat[f"{prefix}__packed__"] = np.asarray(
+                [node.bits, node.group_size, node.in_features, node.out_features])
+        elif node.dtype == torch.bfloat16:
+            flat[f"__bf16__{prefix[:-1]}"] = numpy_from_tensor(node)
+        else:
+            flat[prefix[:-1]] = numpy_from_tensor(node)
+
+    walk(layer)
+    for key, pl in packed.items():
+        if key.startswith(f"layers.{li}."):
+            walk(pl, f"__packed_export__{key}.")
+    tmp = os.path.join(resume_dir, f"layer_{li}.tmp.npz")
+    np.savez(tmp, **flat)
+    os.replace(tmp, os.path.join(resume_dir, f"layer_{li}.npz"))
+    prog_path = os.path.join(resume_dir, "progress.json")
+    done = {}
+    if os.path.exists(prog_path):
+        with open(prog_path) as f:
+            done = json.load(f)
+    done[str(li)] = [s for s in log["layer_stats"] if s["name"].startswith(f"layer_{li}.")]
+    with open(prog_path + ".tmp", "w") as f:
+        json.dump(done, f)
+    os.replace(prog_path + ".tmp", prog_path)
+
+
+def _tree_device(tree) -> torch.device:
+    """The device of a parameter tree's first tensor."""
+    while isinstance(tree, (dict, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree.codes.device if isinstance(tree, PackedLinear) else tree.device
+
+
+def _insert(root: dict, dotted: str, value) -> None:
+    parts = dotted.split(".")
+    for p in parts[:-1]:
+        root = root.setdefault(p, {})
+    root[parts[-1]] = value
+
+
+def _load_resume(resume_dir: str, params: Params, packed: dict, log: dict,
+                 n_layers: int) -> int:
+    """Restore the longest finished prefix of layers (each onto the device
+    its layer lives on); returns the first layer still to do."""
+    prog_path = os.path.join(resume_dir, "progress.json")
+    if not os.path.exists(prog_path):
+        return 0
+    with open(prog_path) as f:
+        done = json.load(f)
+    start = 0
+    while (start < n_layers and str(start) in done
+           and os.path.exists(os.path.join(resume_dir, f"layer_{start}.npz"))):
+        home = _tree_device(params["model"]["layers"][start])
+        with np.load(os.path.join(resume_dir, f"layer_{start}.npz")) as data:
+            arrays = dict(data)
+        layer: dict = {}
+        groups: dict[str, dict] = {}
+        for name, arr in arrays.items():
+            if name.startswith("__packed_export__"):
+                base, leaf = name[len("__packed_export__"):].rsplit(".", 1)
+                groups.setdefault(base, {})[leaf] = arr
+            elif name.startswith("__bf16__"):
+                _insert(layer, name[len("__bf16__"):],
+                        tensor_from_numpy(arr, home, bf16_bits=True))
+            else:
+                _insert(layer, name, tensor_from_numpy(arr, home))
+        params["model"]["layers"][start] = layer
+        for base, parts in groups.items():
+            bits, gs, in_f, out_f = (int(x) for x in parts["__packed__"])
+            bias = parts.get("bias")
+            packed[base] = PackedLinear(
+                codes=tensor_from_numpy(parts["codes"], home),
+                scale=tensor_from_numpy(parts["scale"], home),
+                zero=tensor_from_numpy(parts["zero"], home),
+                bits=bits, group_size=gs, in_features=in_f, out_features=out_f,
+                bias=None if bias is None else tensor_from_numpy(bias, home))
+        log["layer_stats"].extend(done[str(start)])
+        start += 1
+    return start
+
+
+@torch.no_grad()
+def spectral_consistency_check(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
+                               qcfg: QuantizeConfig, max_layers: int = 1,
+                               device: str = "cuda") -> list[dict]:
+    """The reference's mode "test": for each group of the first
+    ``max_layers`` layers, sqrt(λ_max(H)) (H's eigenvalues in f64 on the
+    host) against the sketch's top singular value — a check that the
+    randomized sketch sees the Hessian's spectrum.  One record a group."""
+    dev = resolve_device(device)
+    n_samples, seq_len = input_ids.shape
+    bs = qcfg.batch_size
+    cos, sin = rope_cache(cfg, seq_len, device=dev)
+    inps = _embed_batches(params, cfg, input_ids, bs, dev)
+    records = []
+    for li in range(min(max_layers, len(params["model"]["layers"]))):
+        lp = tree_to(params["model"]["layers"][li], dev)
+        for gi, group_names in enumerate(sequenced_groups(cfg)):
+            in_f = _group_in_features(cfg, gi)
+            acc_h = HessianAccumulator.init(in_f, device=dev)
+            acc_s = SketchAccumulator.init(in_f, rank=int(in_f * qcfg.sketch_ratio),
+                                           seed=qcfg.seed, device=dev)
+            for j in range(0, n_samples, bs):
+                a = _group_input(lp, cfg, gi, inps[j : j + bs], cos, sin,
+                                 attn_impl=qcfg.attn_impl)
+                acc_h.update(a)
+                acc_s.update(a)
+            h = acc_h.finalize().cpu().double().numpy()
+            y = acc_s.finalize().cpu().double().numpy()
+            h_max_sqrt = float(np.sqrt(max(np.linalg.eigvalsh(h)[-1], 0.0)))
+            y_max_sv = float(np.linalg.svd(y, compute_uv=False)[0])
+            rec = {"name": f"layer_{li}.{group_names[0]}",
+                   "sqrt_max_eig_H": h_max_sqrt, "max_sv_Y": y_max_sv,
+                   "ratio": h_max_sqrt / y_max_sv if y_max_sv else float("inf")}
+            logger.info("spectral check %s: sqrt(λmax)=%.4f max_sv=%.4f ratio=%.4f",
+                        rec["name"], h_max_sqrt, y_max_sv, rec["ratio"])
+            records.append(rec)
+    return records
+
+
 @torch.no_grad()
 def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
                    qcfg: QuantizeConfig, device: str = "cuda",
@@ -285,9 +463,12 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
     ``params`` may live on the host or the device; each layer moves to
     ``device`` for its turn and back to where it was.  Returns (params,
     packed export keyed by "layers.<i>.<path>", experiment log).
+
+    ``resume_dir``: every finished layer is saved there, and a re-run with
+    the same directory restores the finished prefix and re-forwards the
+    calibration activations through it, so a killed sweep loses at most
+    one layer.  ``stop_after_layer`` ends the sweep after that layer.
     """
-    if resume_dir is not None:
-        raise NotImplementedError("per-layer resume is slice 3 (ROADMAP.md)")
     if qcfg.kernel_backend not in ("kernel", "plain"):
         raise ValueError(f"unknown kernel_backend {qcfg.kernel_backend!r}")
     dev = resolve_device(device)
@@ -304,20 +485,29 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
     cos, sin = rope_cache(cfg, seq_len, device=dev)
 
     t_start = time.time()
-    embed_w = params["model"]["embed_tokens"]["weight"].to(dev)
-    ids_all = torch.from_numpy(np.asarray(input_ids, np.int64)).to(dev)
-    inps = torch.cat([embed_w[ids_all[j : j + bs]].to(torch.bfloat16)
-                      for j in range(0, n_samples, bs)])
-    del embed_w, ids_all
+    inps = _embed_batches(params, cfg, input_ids, bs, dev)
     logger.info("[calib] captured %d sequences of %d tokens", n_samples, seq_len)
 
     n_layers = len(params["model"]["layers"])
-    for li in range(n_layers):
+    start_layer = 0
+    if resume_dir is not None:
+        start_layer = _load_resume(resume_dir, params, packed, log, n_layers)
+        if start_layer:
+            logger.info("[resume] layers 0..%d restored; re-forwarding the "
+                        "calibration activations", start_layer - 1)
+            refwd = decoder_layer if qcfg.mode == "rtn" else _layer_forward_staged
+            for li in range(start_layer):
+                lp = tree_to(params["model"]["layers"][li], dev)
+                inps = torch.cat([refwd(lp, cfg, inps[j : j + bs], cos, sin,
+                                        attn_impl=qcfg.attn_impl)
+                                  for j in range(0, n_samples, bs)])
+                del lp
+    for li in range(start_layer, n_layers):
         layer_t0 = time.time()
         logger.info("[layer %d/%d] groups: %s", li + 1, n_layers,
                     " | ".join(",".join(g) for g in groups))
         host_layer = params["model"]["layers"][li]
-        home = host_layer["input_layernorm"]["weight"].device
+        home = _tree_device(host_layer)
         lp = tree_to(host_layer, dev)
         lp, outs, module_stats, layer_packed = quantize_layer(
             lp, cfg, inps, cos, sin, qcfg, timers=timers, name_prefix=f"layer_{li}.")
@@ -328,6 +518,8 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
         del outs
         params["model"]["layers"][li] = tree_to(lp, home)
         del lp
+        if resume_dir is not None:
+            _save_resume_layer(resume_dir, li, params["model"]["layers"][li], packed, log)
         logger.info("[*] layer %d/%d done in %.2fs", li + 1, n_layers, time.time() - layer_t0)
         if stop_after_layer is not None and li >= stop_after_layer:
             logger.info("[*] stopping after layer %d as requested", li)

@@ -14,8 +14,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     m = p.add_argument_group("Model Configuration")
     m.add_argument("--model_id", type=str, default="Qwen/Qwen3-8B",
-                   help="tgq_torch preset name (HF ids and local HF "
-                        "directories are slice 3)")
+                   help="tgq_torch preset name, local HF checkpoint "
+                        "directory, or HF hub id in the local HF cache")
     m.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="Compute device")
     m.add_argument("--seed", type=int, default=42, help="Random seed")
@@ -45,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["svd", "gptq", "eigh", "pchol", "rtn", "test", "baseline"],
                    help="Solver: eigh/svd/gptq as in the reference; pchol = "
                         "pivoted-Cholesky TruncGPTQ; rtn; test = spectral "
-                        "consistency check (slice 3); baseline = eval only")
+                        "consistency check; baseline = eval only")
     q.add_argument("--threshold_method", type=str, default="mean_trimmed",
                    choices=["mean_trimmed", "energy"], help="Rank selection rule")
     q.add_argument("--actorder", action="store_true",
@@ -69,9 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--no_pack", action="store_true",
                    help="Skip packed INT export")
     t.add_argument("--profile_dir", type=str, default=None,
-                   help="Device trace of the pipeline (slice 3)")
+                   help="torch.profiler trace of the quantization")
     t.add_argument("--resume_dir", type=str, default=None,
-                   help="Per-layer resume directory (slice 3)")
+                   help="Per-layer resume directory")
 
     o = p.add_argument_group("Output Configuration")
     o.add_argument("--save_path", type=str, default="./output",
@@ -79,9 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--no_save", action="store_true",
                    help="Skip saving model weights")
     o.add_argument("--kv_equalize", action="store_true",
-                   help="Calibrate per-channel KV equalizers (slice 3)")
+                   help="Calibrate per-channel KV equalizers (queued)")
     o.add_argument("--hf_export", action="store_true",
-                   help="Also write a dequantized-bf16 HF checkpoint (slice 3)")
+                   help="Also write a dequantized-bf16 HF checkpoint")
     return p
 
 

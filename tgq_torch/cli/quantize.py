@@ -1,9 +1,14 @@
 """``python -m tgq_torch.cli.quantize`` — the quantization entry point (mirrors
 ``tgq/cli/quantize.py``): flags from ``tgq_torch.cli.args``, stdout and
 file logging, ``results.json`` with {config, layer_stats, metrics},
-``crash_log.json`` on failure.  Models are presets with random weights
-from ``--seed``; the packed checkpoint is saved with
-``tgq_torch.core.checkpoint``.
+``crash_log.json`` on failure.  ``--model_id`` is a preset (random
+weights from ``--seed``), a local HF checkpoint directory or a hub id in
+the local HF cache (``tgq_torch.models.hf_import.resolve_model``).  The
+packed checkpoint is saved with ``tgq_torch.core.checkpoint``;
+``--hf_export`` also writes a dequantized bf16 HF checkpoint to
+``<save_path>/hf``, ``--resume_dir`` keeps finished layers across runs,
+``--profile_dir`` traces the quantization and ``--mode test`` runs the
+spectral consistency check instead.
 """
 from __future__ import annotations
 
@@ -14,32 +19,15 @@ import os
 import sys
 import time
 
-_SLICE3 = "is slice 3 of the port (ROADMAP.md)"
-
-
-def resolve_model(model_id: str, seed: int = 0, device: str = "cuda"):
-    """(params, cfg, tokenizer) for a preset; local HF directories and
-    hub ids raise."""
-    from tgq_torch.models.causal_lm import init_params
-    from tgq_torch.models.config import PRESETS
-
-    if model_id in PRESETS:
-        cfg = PRESETS[model_id]
-        return init_params(cfg, seed=seed, device=device), cfg, None
-    raise ValueError(f"model_id {model_id!r}: hf_import {_SLICE3}; presets: "
-                     f"{', '.join(sorted(PRESETS))}")
-
 
 def main(argv=None) -> int:
     from tgq_torch.cli.args import get_args
     from tgq_torch.utils import setup_logging
 
     args = get_args(argv)
-    for flag, on in (("--resume_dir", args.resume_dir), ("--kv_equalize", args.kv_equalize),
-                     ("--hf_export", args.hf_export), ("--profile_dir", args.profile_dir),
-                     ("--mode test", args.mode == "test")):
-        if on:
-            raise NotImplementedError(f"{flag} {_SLICE3}")
+    if args.kv_equalize:
+        raise NotImplementedError("--kv_equalize (tgq/serve/kv_calibrate.py) is queued "
+                                  "in ROADMAP.md (queue 1)")
     setup_logging(args.save_path)
     log = logging.getLogger("tgq_torch.quantize")
 
@@ -52,6 +40,7 @@ def main(argv=None) -> int:
     from tgq_torch.calib.data import get_loaders, load_eval_tokens
     from tgq_torch.core.checkpoint import save_quantized
     from tgq_torch.eval import perplexity_from_token_stream
+    from tgq_torch.models.hf_import import resolve_model
     from tgq_torch.utils.precision import resolve_device
 
     device = resolve_device(args.device)
@@ -92,19 +81,37 @@ def main(argv=None) -> int:
     )
 
     t0 = time.time()
-    params, packed, run_log = quantize_model(params, cfg, input_ids, qcfg, device=device)
-    experiment_log["layer_stats"] = run_log["layer_stats"]
-    experiment_log["metrics"].update(run_log["metrics"])
-    if not args.no_save:
-        log.info("Saving packed checkpoint to %s", args.save_path)
-        save_quantized(args.save_path, params, packed, cfg, dataclasses.asdict(qcfg))
+    if args.mode == "test":
+        from tgq_torch.calib.pipeline import spectral_consistency_check
+
+        experiment_log["spectral_check"] = spectral_consistency_check(
+            params, cfg, input_ids, qcfg, device=device)
+    else:
+        from tgq_torch.utils.profiling import device_trace
+
+        with device_trace(args.profile_dir, cuda=device.type == "cuda"):
+            params, packed, run_log = quantize_model(params, cfg, input_ids, qcfg,
+                                                     device=device,
+                                                     resume_dir=args.resume_dir)
+        experiment_log["layer_stats"] = run_log["layer_stats"]
+        experiment_log["metrics"].update(run_log["metrics"])
+        if not args.no_save:
+            log.info("Saving packed checkpoint to %s", args.save_path)
+            save_quantized(args.save_path, params, packed, cfg, dataclasses.asdict(qcfg))
+        if args.hf_export:
+            from tgq_torch.models.hf_export import export_hf
+
+            hf_dir = os.path.join(args.save_path, "hf")
+            log.info("Exporting HF-format checkpoint to %s", hf_dir)
+            export_hf(hf_dir, params, cfg, tokenizer=tokenizer)
     total = time.time() - t0
     log.info("Total processing time: %.2f minutes", total / 60)
 
-    log.info("Running final evaluation...")
-    ppl = eval_ppl(params)
-    log.info("Final Quantized PPL: %.4f", ppl)
-    experiment_log["metrics"].update({"total_time": total, "quantized_ppl": ppl})
+    if args.mode != "test":
+        log.info("Running final evaluation...")
+        ppl = eval_ppl(params)
+        log.info("Final Quantized PPL: %.4f", ppl)
+        experiment_log["metrics"].update({"total_time": total, "quantized_ppl": ppl})
 
     os.makedirs(args.save_path, exist_ok=True)
     with open(os.path.join(args.save_path, "results.json"), "w") as f:

@@ -44,19 +44,17 @@ def load_or_make_model(args, device):
         params, cfg, qconf = load_quantized(args.checkpoint, device=device)
         _maybe_pack_head(params, args)
         return params, cfg, qconf.get("kv_equalizers")
-    if args.model_id not in PRESETS:
-        raise ValueError(f"model_id {args.model_id!r}: hf_import {_QUEUED}; presets: "
-                         f"{', '.join(sorted(PRESETS))}")
-    cfg = PRESETS[args.model_id]
     spec = QuantSpec(bits=args.w_bits, group_size=args.group_size, sym=False)
-    if args.w_bits < 16 and not cfg.attention_bias:
+    cfg = PRESETS.get(args.model_id)
+    if cfg is not None and cfg.family == "llama" and args.w_bits < 16 \
+            and not cfg.attention_bias:
         from tgq_torch.models.hf_import import init_packed_params
 
         return init_packed_params(cfg, spec, seed=0, lm_head_bits=args.lm_head_bits,
                                   device=device), cfg, None
-    from tgq_torch.models.causal_lm import init_params
+    from tgq_torch.models.hf_import import resolve_model
 
-    params = init_params(cfg, seed=0, device=device)
+    params, cfg, _ = resolve_model(args.model_id, seed=0, device=device)
     if args.w_bits < 16:
         _rtn_pack_dense(params, cfg, spec)
     _maybe_pack_head(params, args)
@@ -78,10 +76,37 @@ def _maybe_pack_head(params, args) -> bool:
     return True
 
 
+def _measured_run(eng, prompts, arrival_rate: float, rng, sync):
+    """The measured run: every prompt at once (closed loop), or Poisson
+    arrivals at ``arrival_rate`` req/s driving ``Engine.step``.  Returns
+    (requests, wall seconds)."""
+    if arrival_rate > 0:
+        gaps = rng.exponential(1.0 / arrival_rate, size=len(prompts))
+        t0 = time.time()
+        arrivals = t0 + np.cumsum(gaps)
+        reqs, i = [], 0
+        while i < len(prompts) or not eng.idle:
+            now = time.time()
+            while i < len(prompts) and arrivals[i] <= now:
+                reqs.append(eng.submit(prompts[i]))
+                i += 1
+            if eng.idle and i < len(prompts):
+                time.sleep(max(0.0, arrivals[i] - time.time()))
+                continue
+            eng.step()
+    else:
+        reqs = [eng.submit(p) for p in prompts]
+        t0 = time.time()
+        eng.run()
+    sync()
+    return reqs, time.time() - t0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--checkpoint", default=None, help="packed checkpoint dir")
-    ap.add_argument("--model_id", default="qwen3-8b", help="preset when no checkpoint")
+    ap.add_argument("--model_id", default="qwen3-8b",
+                    help="preset, local HF directory or cached hub id when no checkpoint")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--w_bits", type=int, default=4,
                     help="RTN bits for the random preset (16 = dense)")
@@ -109,7 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--arrival_rate", type=float, default=0.0,
                     help="open loop: Poisson arrivals at this rate (req/s); 0 = closed loop")
-    ap.add_argument("--profile_dir", default=None, help="profiler trace (queued)")
+    ap.add_argument("--profile_dir", default=None,
+                    help="torch.profiler trace of the measured run, written to "
+                         "<dir>/trace.json")
     ap.add_argument("--mesh_model", type=int, default=0, help="TP degree (queued)")
     ap.add_argument("--mesh_data", type=int, default=1, help="data-parallel degree (queued)")
     ap.add_argument("--distributed", action="store_true", help="multi-host (queued)")
@@ -123,8 +150,7 @@ def run(args) -> dict:
     from tgq_torch.utils.precision import resolve_device
 
     for flag, on in (("--mesh_model", args.mesh_model), ("--mesh_data", args.mesh_data != 1),
-                     ("--distributed", args.distributed), ("--kv_equalize", args.kv_equalize),
-                     ("--profile_dir", args.profile_dir)):
+                     ("--distributed", args.distributed), ("--kv_equalize", args.kv_equalize)):
         if on:
             raise NotImplementedError(f"{flag} {_QUEUED}")
     device = resolve_device(args.device)
@@ -161,28 +187,10 @@ def run(args) -> dict:
     eng.decode_wall_s = eng.prefill_wall_s = 0.0
     eng.steps = eng.tokens_emitted = 0
 
-    if args.arrival_rate > 0:
-        gaps = rng.exponential(1.0 / args.arrival_rate, size=len(prompts))
-        t0 = time.time()
-        arrivals = t0 + np.cumsum(gaps)
-        reqs, i = [], 0
-        while i < len(prompts) or not eng.idle:
-            now = time.time()
-            while i < len(prompts) and arrivals[i] <= now:
-                reqs.append(eng.submit(prompts[i]))
-                i += 1
-            if eng.idle and i < len(prompts):
-                time.sleep(max(0.0, arrivals[i] - time.time()))
-                continue
-            eng.step()
-        sync()
-        wall = time.time() - t0
-    else:
-        reqs = [eng.submit(p) for p in prompts]
-        t0 = time.time()
-        eng.run()
-        sync()
-        wall = time.time() - t0
+    from tgq_torch.utils.profiling import device_trace
+
+    with device_trace(args.profile_dir, cuda=device.type == "cuda"):
+        reqs, wall = _measured_run(eng, prompts, args.arrival_rate, rng, sync)
 
     total_tokens = sum(len(r.output) for r in reqs)
     ttft = [r.first_token_t - r.submit_t for r in reqs]

@@ -1,4 +1,6 @@
-"""Decoder-only causal LM, llama family (mirrors ``tgq/models/causal_lm.py``).
+"""Decoder-only causal LM (mirrors ``tgq/models/causal_lm.py``): the llama
+family here, GPT-2 (``tgq_torch.models.gpt2``) and OPT
+(``tgq_torch.models.opt``) behind the same staged functions.
 
 Parameters are a nested dict of tensors with the JAX tree's key paths
 (``model.layers.<i>.self_attn.q_proj.w`` …), so ``get_nested``/``set_nested``,
@@ -26,11 +28,18 @@ from tgq_torch.utils.precision import resolve_device
 Params = dict
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "llama":
-        raise NotImplementedError(
-            f"tgq_torch ports the llama family only; {cfg.family!r} is "
-            "queued in ROADMAP.md (slice 3)")
+def _family_fn(cfg: ModelConfig, name: str):
+    """``<family>_<name>`` of the gpt2 or opt module, or None for the
+    llama family (whose versions are the functions of this module)."""
+    if cfg.family == "llama":
+        return None
+    if cfg.family == "gpt2":
+        from tgq_torch.models import gpt2 as mod
+    elif cfg.family == "opt":
+        from tgq_torch.models import opt as mod
+    else:
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    return getattr(mod, f"{cfg.family}_{name}")
 
 
 # ----------------------------------------------------------------- linears
@@ -52,6 +61,13 @@ def apply_linear(p, x: torch.Tensor, glu: bool = False) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def linear_weight(p) -> torch.Tensor:
+    """Dense (out, in) view of a linear (dequantized if packed)."""
+    if isinstance(p, PackedLinear):
+        return p.dequantize()
+    return p["w"]
 
 
 # ------------------------------------------------------------------- norms
@@ -128,14 +144,18 @@ def causal_attention(q, k, v, impl: str = "auto"):
 
 
 def attn_input(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Input to quantization group 0 (q/k/v_proj)."""
+    """Input to quantization group 0 (q/k/v_proj; gpt2: c_attn)."""
+    if fn := _family_fn(cfg, "attn_input"):
+        return fn(lp, cfg, x)
     return rms_norm(x, lp["input_layernorm"]["weight"], cfg.rms_norm_eps)
 
 
 def attn_core(lp: Params, cfg: ModelConfig, h: torch.Tensor, cos, sin,
               attn_impl: str = "auto") -> torch.Tensor:
-    """q/k/v through attention; returns the group-1 input (o_proj),
-    shape (batch, seq, q_size)."""
+    """q/k/v through attention; returns the group-1 input (o_proj; gpt2:
+    attn.c_proj; opt: out_proj), shape (batch, seq, q_size)."""
+    if fn := _family_fn(cfg, "attn_core"):
+        return fn(lp, cfg, h, attn_impl=attn_impl)
     b, s, _ = h.shape
     q = apply_linear(lp["self_attn"]["q_proj"], h).reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = apply_linear(lp["self_attn"]["k_proj"], h).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -150,22 +170,30 @@ def attn_core(lp: Params, cfg: ModelConfig, h: torch.Tensor, cos, sin,
 
 
 def mlp_input(lp: Params, cfg: ModelConfig, x2: torch.Tensor) -> torch.Tensor:
-    """Input to quantization group 2 (gate/up_proj)."""
+    """Input to quantization group 2 (gate/up_proj; gpt2: c_fc; opt: fc1)."""
+    if fn := _family_fn(cfg, "mlp_input"):
+        return fn(lp, cfg, x2)
     return rms_norm(x2, lp["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
 
 
 def mlp_act(lp: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """Group-3 input: silu(gate)·up."""
+    """Group-3 input: silu(gate)·up (gpt2: gelu(c_fc h); opt: relu(fc1 h))."""
+    if fn := _family_fn(cfg, "mlp_act"):
+        return fn(lp, cfg, h)
     gate = apply_linear(lp["mlp"]["gate_proj"], h)
     up = apply_linear(lp["mlp"]["up_proj"], h)
     return glu_act(gate, up)
 
 
 def attn_out_proj(lp: Params, cfg: ModelConfig, attn: torch.Tensor) -> torch.Tensor:
+    if fn := _family_fn(cfg, "attn_out"):
+        return fn(lp, cfg, attn)
     return apply_linear(lp["self_attn"]["o_proj"], attn)
 
 
 def mlp_out_proj(lp: Params, cfg: ModelConfig, act: torch.Tensor) -> torch.Tensor:
+    if fn := _family_fn(cfg, "mlp_out"):
+        return fn(lp, cfg, act)
     return apply_linear(lp["mlp"]["down_proj"], act)
 
 
@@ -182,12 +210,18 @@ def decoder_layer(lp: Params, cfg: ModelConfig, x: torch.Tensor, cos, sin,
 # -------------------------------------------------------------- full model
 
 
-def embed_tokens(params: Params, input_ids: torch.Tensor,
-                 dtype=torch.bfloat16) -> torch.Tensor:
+def embed_tokens(params: Params, input_ids: torch.Tensor, dtype=torch.bfloat16,
+                 cfg: ModelConfig | None = None) -> torch.Tensor:
+    """Token embeddings, plus the learned positions of gpt2/opt (which
+    need ``cfg``)."""
+    if cfg is not None and (fn := _family_fn(cfg, "embed")):
+        return fn(params, input_ids, dtype)
     return params["model"]["embed_tokens"]["weight"][input_ids].to(dtype)
 
 
 def apply_final_norm(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if fn := _family_fn(cfg, "final_norm"):
+        return fn(params, cfg, x)
     return rms_norm(x, params["model"]["norm"]["weight"], cfg.rms_norm_eps)
 
 
@@ -208,13 +242,36 @@ def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
 def forward(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
             attn_impl: str = "auto") -> torch.Tensor:
     """Full forward, returns (batch, seq, vocab) f32 logits."""
-    _check_family(cfg)
-    x = embed_tokens(params, input_ids)
+    x = embed_tokens(params, input_ids, cfg=cfg)
     cos, sin = rope_cache(cfg, input_ids.shape[1], device=x.device)
     for lp in params["model"]["layers"]:
         x = decoder_layer(lp, cfg, x, cos, sin, attn_impl=attn_impl)
     x = apply_final_norm(params, cfg, x)
     return lm_logits(params, cfg, x)
+
+
+@torch.no_grad()
+def greedy_generate(params: Params, cfg: ModelConfig, prompt_ids, max_new_tokens: int,
+                    attn_impl: str = "auto") -> list[int]:
+    """Family-agnostic greedy generation by full-recompute ``forward``
+    (the generation path of gpt2/opt, which the paged engine does not
+    serve).  The sequence lives in one fixed (1, L) buffer: causal
+    attention makes positions >= i irrelevant to token i's logits, as in
+    the JAX package's single compiled loop.  O(n²·L): a correctness
+    path, not a serving path."""
+    prompt = [int(t) for t in prompt_ids]
+    n_prompt = len(prompt)
+    total = n_prompt + max_new_tokens
+    if total > cfg.max_position_embeddings:
+        raise ValueError(f"{total} tokens exceed max_position_embeddings "
+                         f"{cfg.max_position_embeddings}")
+    dev = params["model"]["embed_tokens"]["weight"].device
+    ids = torch.zeros((1, total), dtype=torch.int64, device=dev)
+    ids[0, :n_prompt] = torch.tensor(prompt, dtype=torch.int64)
+    for pos in range(n_prompt, total):
+        logits = forward(params, cfg, ids, attn_impl=attn_impl)
+        ids[0, pos] = torch.argmax(logits[0, pos - 1])
+    return ids[0, n_prompt:].tolist()
 
 
 # ---------------------------------------------------------------- init
@@ -225,7 +282,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str = "cuda",
     """Random init with standard LLM scaling, from ``seed`` (the numbers
     differ from ``jax.random``'s; share weights through
     ``tgq_torch.models.convert`` where the two must agree)."""
-    _check_family(cfg)
+    if cfg.family == "gpt2":
+        from tgq_torch.models.gpt2 import init_gpt2_params
+
+        return init_gpt2_params(cfg, seed, device, dtype)
+    if cfg.family == "opt":
+        from tgq_torch.models.opt import init_opt_params
+
+        return init_opt_params(cfg, seed, device, dtype)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -284,7 +348,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str = "cuda",
 def sequenced_groups(cfg: ModelConfig) -> list[list[str]]:
     """Quantization order within a decoder layer: 4 sequential groups that
     share one input Hessian each."""
-    _check_family(cfg)
+    if fn := _family_fn(cfg, "sequenced_groups"):
+        return fn(cfg)
     return [
         ["self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"],
         ["self_attn.o_proj"],

@@ -13,9 +13,10 @@ projection goes through ``quantized_matmul`` (K3, or K4 for A8 weights).
 ``decode_steps`` runs ``n_steps`` tokens with sampling on the device; only
 the ``(n_steps, slots)`` int32 block leaves it.  Greedy sampling is
 ``argmax`` (first index on ties, as ``jnp.argmax``).  Temperature sampling
-draws from a ``torch.Generator``, so it cannot reproduce JAX's threefry
-stream.  Prefill attention is ``causal_attention`` (SDPA on CUDA, the
-naive f32 softmax on the CPU) over the prompt itself.
+is Gumbel-max on noise drawn by ``_uniform`` from a ``torch.Generator``:
+the noise is not JAX's threefry stream, but given the same noise the two
+samplers pick the same tokens.  Prefill attention is ``causal_attention``
+(SDPA on CUDA, the naive f32 softmax on the CPU) over the prompt itself.
 """
 from __future__ import annotations
 
@@ -164,15 +165,23 @@ def decode_step(params, cache: PagedKVCache, cfg: ModelConfig, table, lens, toke
     return _decode_core(params, cache, cfg, table, lens, tokens, pos, live), cache
 
 
+def _uniform(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """The sampler's noise: f32 uniforms in [tiny, 1) from ``gen``, the
+    range of ``jax.random.uniform(minval=tiny)`` in ``jax.random.gumbel``."""
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return u.clamp_(min=torch.finfo(torch.float32).tiny)
+
+
 def _sample_tokens(logits, temps, gen: torch.Generator, greedy_only: bool = False):
     """Per-slot greedy / temperature sampling on the logits' device.
-    temps (slots,), 0 = greedy.  Gumbel-max draws from ``gen``."""
+    temps (slots,), 0 = greedy.  Gumbel-max on ``_uniform``'s noise,
+    argmax(-log(-log(u)) + logits / t) as ``jax.random.categorical``."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if greedy_only:
         return greedy
-    u = torch.rand(logits.shape, generator=gen, device=logits.device).clamp_(min=1e-20)
+    u = _uniform(logits.shape, gen, logits.device)
     t = torch.clamp(temps, min=1e-6)[:, None]
-    sampled = torch.argmax(logits.float() / t - torch.log(-torch.log(u)), dim=-1)
+    sampled = torch.argmax(-torch.log(-torch.log(u)) + logits.float() / t, dim=-1)
     return torch.where(temps > 0, sampled.to(torch.int32), greedy)
 
 

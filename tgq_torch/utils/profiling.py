@@ -1,8 +1,9 @@
-"""Phase timers (mirrors ``tgq/utils/profiling.py``)."""
+"""Phase timers and the device trace (mirrors ``tgq/utils/profiling.py``)."""
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from collections import defaultdict
 
@@ -47,3 +48,26 @@ class PhaseTimers:
         for k, v in self.summary().items():
             logger.info("[timing] %-24s total %8.2fs  n=%4d  mean %7.3fs",
                         k, v["total_s"], v["count"], v["mean_s"])
+
+
+TRACE_NAME = "trace.json"
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | None, cuda: bool = True):
+    """``torch.profiler`` trace of the enclosed region, written on exit as
+    a Chrome trace to ``<trace_dir>/trace.json`` (nothing when
+    ``trace_dir`` is None).  ``cuda`` adds the CUDA activity (kernel
+    launches and device time); a region run on the CPU traces the CPU."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    path = os.path.join(trace_dir, TRACE_NAME)
+    prof.export_chrome_trace(path)
+    logger.info("[profile] device trace written to %s", path)
