@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 0,5,6,7   # the serving slice only
     python3 chip_smoke.py --phases 0,8       # GPT-2 / OPT, HF checkpoints, resume
+    python3 chip_smoke.py --phases 0,9       # equalizers, soak, harnesses, tables
 
 Phases:
   0. the card's name and power limit; build the CUDA kernels from
@@ -52,6 +53,29 @@ Phases:
      bit, the trace's kernel names; K1 and K2 at the families' widths
      against their plain versions; an untraced rerun for s/layer; GPT-2
      stopped after layer 5 and resumed, codes bit for bit.
+  9. Equalizers, the native allocator, the soak and the harnesses:
+     (a) KV equalizers estimated on 256 seeded tokens for phase 7a's
+     model, then paged decode with int8 and int4 KV, with and without
+     them, against full recompute under phase 7a's limit: equalized int8
+     against the unquantized model, equalized int8 and int4 against the
+     model whose last token attends the rows the cache stored (int4's own
+     error against the unquantized model is printed, 9x the limit), with a
+     planted fault (decode without the equalizers) caught; (b) the serve
+     CLI at 36 layers with ``--kv_equalize`` and the native page
+     allocator, kv8 and kv4 + A8 + 8-bit head; (c) the serving soak
+     (``tgq_torch.cli.serve_soak``: 512 mixed requests, 128 slots, kv8,
+     A8, EOS), every request within budget and the pages balanced; (d)
+     ``kernel_bench`` (K3 at t = 16 and 8, K4 at t = 8; the t = 8
+     readings within 25 % of phase 5's), ``decode_bench`` at its defaults
+     and at phase 7c's shape (the whole step within 25 % of phase 7c's
+     chunk wall, timed interleaved with it), ``gptq_kernel_bench`` (K2
+     faster than plain, codes bit for bit); (e) ``run_benchmark`` (11 rows), ``run_baseline`` and
+     ``run_experiments`` on a 12-layer GPT-2 HF checkpoint, every row OK,
+     W4 PPL within 5 % of FP, and ``extract_log`` over the table's runs;
+     (f) ``kv_quality``: equalized int8 / int4 error below unequalized at
+     every context; (g) ``synthetic_bench``: pchol and eigh at or below
+     RTN at W4.  Each path runs with the launch counters set to 0 just
+     before it and read just after.
 
 Every mismatch raises; the script exits 0 only if every phase passed.
 The second-to-last line is a JSON object with one entry per kernel, the
@@ -61,7 +85,9 @@ without the ``tgq_torch`` package beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -70,11 +96,13 @@ import sys
 import tempfile
 import time
 
-
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
-F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
-INT8_OP_PER_S = 1979e12     # H100 SXM int8 tensor cores, dense
+from tgq_torch.utils.timing import (  # fails outside a checkout of the repo
+    BF16_FLOP_PER_S,
+    HBM_BYTES_PER_S,
+    INT8_OP_PER_S,
+    bound_ms,
+    cuda_ms,
+)
 
 
 def log(msg: str) -> None:
@@ -85,36 +113,6 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` calls.  A spin
-    kernel keeps the card busy while the host queues the timed calls, so
-    the events bracket the device's work and not the host's dispatch."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2e9 * (2 * reps * host_s + 1e-3), 1e9)))  # ~2 GHz cycles
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / rate * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
 # ------------------------------------------------------------ spectra (K1)
@@ -582,7 +580,7 @@ def k3_group_check(dev, n_out: int = 520, n_in: int = 1024, tokens=(8, 64)) -> N
 
 
 def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 64, 1024),
-                  time_it=None) -> None:
+                  time_it=None, readings=None) -> None:
     """K3 (bits 2/3/4/8, bf16 and f32 output, bf16 activations and, at o
     and down, f32 ones; GLU at the down shape) and K4 (bits 2/3/4, f32 and
     bf16 output) against their plain versions, each K3 case with the
@@ -595,12 +593,14 @@ def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 6
     output rounded once, two launches bit-identical, GLU equal to the split
     form ``glu_act`` + matmul bit for bit; K4 bit for bit.  The library's
     int4 GEMM rounds scale and zero to bf16 and dequantizes in bf16, so it
-    is held within 2e-2 * max|y|."""
+    is held within 2e-2 * max|y|.  ``readings`` collects each timed
+    launch's ms under ("K3" | "K4", name, bits, t)."""
     import torch
 
     from tgq_torch.kernels import dequant_matmul as KD
 
     time_it = time_it or cuda_ms
+    readings = {} if readings is None else readings
     gen = torch.Generator(device=dev).manual_seed(5)
     for name, n_out, n_in in shapes:
         head = name == "lm_head"
@@ -664,6 +664,7 @@ def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 6
                     ms = time_it(lambda: KD.quantized_matmul(xin, w, glu=glu), reps=20)
                     if not glu:
                         k3_ms = ms  # beside K4 at the same shape
+                        readings[("K3", name, bits, t)] = ms
                     plain_ms = time_it(lambda: KD.dequant_matmul_plain(xin, w, glu=glu), reps=3)
                     dense_ms = time_it(lambda: torch.matmul(x, w_dense.T), reps=20)
                     KD.launches = before
@@ -706,6 +707,7 @@ def phase5_matmul(dev, k3: dict, k4: dict, shapes=QWEN3_8B_MATMULS, tokens=(8, 6
                 err = float((y - ref).abs().max())
                 # the kernel alone, and the activation quantization (PyTorch ops) apart
                 ms = time_it(lambda: KD.a8_matmul(x8, a, w8, out_dtype=torch.bfloat16), reps=20)
+                readings[("K4", name, bits, t)] = ms
                 qa_ms = time_it(lambda: KD.quantize_activations(x), reps=20)
                 plain_ms = time_it(lambda: KD.a8_matmul_plain(x8, a, w8), reps=3)
                 KD.launches_a8 = before
@@ -965,16 +967,59 @@ def bf16_exact(params):
     return walk(params)
 
 
+def stored_kv_attention(cfg, cache, table_row, eq):
+    """A causal attention for ``forward`` whose last query attends the K/V
+    rows the paged cache holds for its earlier tokens (dequantized, times
+    the equalizers ``eq`` = (k_eq, v_eq) when given) and its own row as
+    computed: the attention of the last token over exactly what the cache
+    stored.  The other queries attend the fresh rows (the last token's
+    logits do not depend on them).  f32 softmax; the layer is counted from
+    the calls, which ``forward`` makes in layer order."""
+    import torch
+
+    from tgq_torch.models.causal_lm import _naive_causal_attention
+    from tgq_torch.serve.kv_cache import gather_pools
+
+    calls = [0]
+
+    def attention(q, k, v, impl="auto"):
+        li = calls[0] % cfg.num_layers
+        calls[0] += 1
+        n, h, d = q.shape[1:]
+        kvh = k.shape[2]
+        out = _naive_causal_attention(q, k, v).float()
+        quantized = cache.ks is not None
+        kg, vg = gather_pools(cache.k[li], cache.v[li], cache.ks[li] if quantized else None,
+                              cache.vs[li] if quantized else None, table_row, kvh)
+        if eq is not None:
+            kg = kg * torch.as_tensor(eq[0][li], device=kg.device).reshape(kvh, d)
+            vg = vg * torch.as_tensor(eq[1][li], device=vg.device).reshape(kvh, d)
+        rows = lambda g, x: torch.cat([g[:, :n - 1], x[:, -1:].float()], dim=1)  # noqa: E731
+        kl = rows(kg, k).repeat_interleave(h // kvh, dim=2)
+        vl = rows(vg, v).repeat_interleave(h // kvh, dim=2)
+        logits = torch.einsum("bhd,bkhd->bhk", q[:, -1].float(), kl) / math.sqrt(d)
+        out[:, -1] = torch.einsum("bhk,bkhd->bhd", torch.softmax(logits, dim=-1), vl)
+        return out.to(q.dtype)
+
+    return attention
+
+
 def paged_vs_recompute(params, cfg, dev, steps: int, rel_tol: float, fault=None,
-                       ref_attn: str = "auto"):
+                       ref_attn: str = "auto", kv_bits: int = 16, eq=None,
+                       kv_reference: bool = False):
     """Prefill two prompts (100 and 37 tokens), then ``steps`` paged decode
-    steps on 2 slots (bf16 KV); at every step each slot's logits against
+    steps on 2 slots (bf16 KV, or ``kv_bits`` 8 / 4 with the equalizers
+    ``eq`` = (k_eq, v_eq) or none; ``kv_reference``: the reference's last
+    token attends the rows the cache stored, ``stored_kv_attention``); at
+    every step each slot's logits against
     ``forward`` recomputed on the whole sequence with the dequantized dense
     bf16 weights (no K3/K5; ``ref_attn`` "auto" is bf16 SDPA on CUDA,
     "naive" an f32 softmax).  ``fault`` plants a bug for a control reading:
     "attention" passes K5 a zero current V row (so the current token's
     value is lost, in the output and in the pool), "matmul" zeroes every
-    packed matmul's last group of inputs.  Returns (max |dlogit|
+    packed matmul's last group of inputs, "equalizers" drops the cache's
+    equalizers after prefill (decode neither folds nor divides by them).
+    Returns (max |dlogit|
     / max |logit|, max |logit|, greedy agreements, steps whose reference
     top-2 gap exceeds ``rel_tol`` * max |logit|)."""
     import torch
@@ -985,6 +1030,7 @@ def paged_vs_recompute(params, cfg, dev, steps: int, rel_tol: float, fault=None,
     from tgq_torch.serve.kv_cache import PagedKVCache, PageTable
 
     real_attn, real_mm = K5.paged_decode_attention, CL.quantized_matmul
+    real_causal = CL.causal_attention
 
     def attn_without_current_v(q, kp, vp, ks, vs, lens, table, kc, vc, **kw):
         return real_attn(q, kp, vp, ks, vs, lens, table, kc, torch.zeros_like(vc), **kw)
@@ -999,7 +1045,9 @@ def paged_vs_recompute(params, cfg, dev, steps: int, rel_tol: float, fault=None,
     page, mpps = 64, 4
     rng = torch.Generator(device="cpu").manual_seed(7)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in (100, 37)]
-    cache = PagedKVCache.init(cfg, 2 * mpps + 1, page, device=dev)
+    k_eq, v_eq = eq if eq is not None else (None, None)
+    cache = PagedKVCache.init(cfg, 2 * mpps + 1, page, kv_bits=kv_bits, k_eq=k_eq, v_eq=v_eq,
+                              device=dev)
     pt = PageTable(2 * mpps + 1, page, 2, mpps)
     if fault == "attention":
         K5.paged_decode_attention = attn_without_current_v
@@ -1015,6 +1063,8 @@ def paged_vs_recompute(params, cfg, dev, steps: int, rel_tol: float, fault=None,
                                     len(p))
             seqs.append(list(p))
             toks.append(int(logits.argmax()))
+        if fault == "equalizers":
+            cache.k_eq = cache.v_eq = None
         worst, agree, decided, top = 0.0, 0, 0, 0.0
         for _ in range(steps):
             for s in range(2):
@@ -1025,8 +1075,14 @@ def paged_vs_recompute(params, cfg, dev, steps: int, rel_tol: float, fault=None,
             logits, cache = decode_step(fused, cache, cfg, table, lens, tokens, lens - 1,
                                         live=torch.ones(2, dtype=torch.int32, device=dev))
             for s in range(2):
-                ref = CL.forward(dense, cfg, torch.tensor([seqs[s]], device=dev),
-                                 attn_impl=ref_attn)[0, -1]
+                if kv_reference:
+                    CL.causal_attention = stored_kv_attention(cfg, cache, table[s:s + 1], eq)
+                try:
+                    ref = CL.forward(dense, cfg, torch.tensor([seqs[s]], device=dev),
+                                     attn_impl=ref_attn)[0, -1]
+                finally:
+                    CL.causal_attention = real_causal
+
                 top_s = float(ref.abs().max())
                 worst = max(worst, float((logits[s] - ref).abs().max()) / top_s)
                 top = max(top, top_s)
@@ -1053,18 +1109,14 @@ def kernel_class(name: str) -> str:
     return "elementwise and other PyTorch ops"
 
 
-def decode_step_profile(dev, preset: str = "qwen3-8b", slots: int = 8, prompt_len: int = 128,
-                        steps: int = 8, layers=None) -> dict:
-    """``decode_steps`` chunks of ``steps`` tokens for ``slots`` slots at
-    full width and depth (W4 g128, bf16 KV, dense head), after a warm-up
-    chunk: one timed on the host's clock (wall per step, and the host's
-    dispatch time per step until ``decode_steps`` returns), then one
-    traced by ``torch.profiler`` for the device-busy time (the kernels'
-    times summed; one stream, so they do not overlap), launches per step
-    and device time by kernel class.  The idle share is 1 - busy / the
-    untraced wall (the tracer slows the host)."""
+def decode_chunk_runner(dev, preset: str = "qwen3-8b", slots: int = 8, prompt_len: int = 128,
+                        steps: int = 8, layers=None, chunks: int = 7):
+    """Phase 7c's decode: ``slots`` prompts of ``prompt_len`` tokens prefilled
+    at full width and depth (W4 g128, bf16 KV, dense head, greedy), and a
+    function that dispatches the next ``decode_steps`` chunk of ``steps``
+    tokens (pages for ``chunks`` chunks) and returns its token block
+    without waiting.  Returns (chunk, cfg)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tgq_torch.core.quant import QuantSpec
     from tgq_torch.models import PRESETS
@@ -1078,7 +1130,7 @@ def decode_step_profile(dev, preset: str = "qwen3-8b", slots: int = 8, prompt_le
     params = fuse_packed_projections(
         init_packed_params(cfg, QuantSpec(bits=4, group_size=128), seed=0, device=dev))
     page = 64
-    mpps = -(-(prompt_len + 2 * steps + 1) // page)
+    mpps = -(-(prompt_len + chunks * steps + 1) // page)
     n_pages = slots * mpps + 1
     cache = PagedKVCache.init(cfg, n_pages, page, device=dev)
     pt = PageTable(n_pages, page, slots, mpps)
@@ -1103,12 +1155,38 @@ def decode_step_profile(dev, preset: str = "qwen3-8b", slots: int = 8, prompt_le
         return decode_steps(params, cache, cfg, table, lens0 + 1, tok, lens0, temps, gen,
                             steps, greedy_only=True, live=live)[0]
 
+    return chunk, cfg
+
+
+def decode_step_profile(dev, preset: str = "qwen3-8b", slots: int = 8, prompt_len: int = 128,
+                        steps: int = 8, layers=None, timed_chunks: int = 5) -> dict:
+    """``decode_chunk_runner``'s chunks, after a warm-up chunk:
+    ``timed_chunks`` timed on the host's clock with the garbage collector
+    off (the median chunk's wall per step, and the host's dispatch time per
+    step until ``decode_steps`` returns), then one traced by
+    ``torch.profiler`` for the device-busy time (the kernels' times summed;
+    one stream, so they do not overlap), launches per step and device time
+    by kernel class.  The idle share is 1 - busy / the untraced wall (the
+    tracer slows the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    chunk, cfg = decode_chunk_runner(dev, preset, slots, prompt_len, steps, layers,
+                                     chunks=timed_chunks + 2)
     chunk().cpu()
-    t0 = time.time()
-    toks = chunk()
-    host = time.time() - t0
-    toks.cpu()
-    wall = time.time() - t0
+    walls, hosts = [], []
+    gc.collect()
+    gc.disable()  # as timeit does: no collection lands in a timed chunk
+    try:
+        for _ in range(timed_chunks):
+            t0 = time.time()
+            toks = chunk()
+            hosts.append(time.time() - t0)
+            toks.cpu()
+            walls.append(time.time() - t0)
+    finally:
+        gc.enable()
+    wall, host = sorted(walls)[timed_chunks // 2], sorted(hosts)[timed_chunks // 2]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         chunk().cpu()
@@ -1127,13 +1205,13 @@ def decode_step_profile(dev, preset: str = "qwen3-8b", slots: int = 8, prompt_le
     busy = sum(by_class.values())
     out = {"layers": cfg.num_layers, "slots": slots, "steps": steps,
            "wall_ms_per_step": wall * 1e3 / steps, "host_ms_per_step": host * 1e3 / steps,
+           "wall_ms_per_step_range": [min(walls) * 1e3 / steps, max(walls) * 1e3 / steps],
            "traced_wall_ms_per_step": traced_wall * 1e3 / steps,
            "device_busy_ms_per_step": busy / steps,
            "idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
            "device_launches_per_step": launches / steps,
            "device_ms_per_step_by_class": {k: v / steps for k, v in sorted(
                by_class.items(), key=lambda kv: -kv[1])}}
-    del params, cache
     return out
 
 
@@ -1145,7 +1223,9 @@ def phase7_serving(dev, counts: dict, preset: str = "qwen3-8b", check_layers: in
     the same with bf16-exact weights and two planted faults that the
     tolerance must catch (``paged_vs_recompute``);
     (b) ``tgq_torch.cli.serve.run`` at all layers with kv_bits 16, 8, and
-    4 with a_bits 8 and an 8-bit head, each run's launch counts read."""
+    4 with a_bits 8 and an 8-bit head, each run's launch counts read;
+    (c) one decode chunk traced (``decode_step_profile``).  Returns the
+    three metrics dicts, then the profile."""
     import torch
 
     from tgq_torch.cli.serve import build_parser, run
@@ -1222,12 +1302,13 @@ def phase7_serving(dev, counts: dict, preset: str = "qwen3-8b", check_layers: in
     prof = decode_step_profile(dev, preset, layers=serve_layers)
     print(json.dumps({"decode_step_profile": prof}), flush=True)
     log(f"[phase7c] {preset} x{prof['layers']} layers, {prof['slots']} slots, bf16 KV: "
-        f"{prof['wall_ms_per_step']:.2f} ms/step wall, host dispatch "
+        f"{prof['wall_ms_per_step']:.2f} ms/step wall (median chunk; range "
+        f"{prof['wall_ms_per_step_range'][0]:.2f}-{prof['wall_ms_per_step_range'][1]:.2f}), host dispatch "
         f"{prof['host_ms_per_step']:.2f} ms/step (traced: {prof['traced_wall_ms_per_step']:.2f} "
         f"ms/step wall), device busy "
         f"{prof['device_busy_ms_per_step']:.2f} ms/step, idle share {prof['idle_share']}, "
         f"{prof['device_launches_per_step']:.0f} device launches/step ({time.time()-t0:.1f} s)")
-    return results
+    return results + [prof]
 
 
 # ------------------------------------------- families and checkpoints (8)
@@ -1615,9 +1696,430 @@ def phase8_families(dev, counts: dict, models=(("gpt2", 1), ("opt-1.3b", 2)),
     return runs
 
 
+# ------------------------------ slice 7: equalizers, soak, harnesses (9)
+
+KERNEL_COUNTERS = (("pchol_panel", "pchol_panel", "launches"),
+                   ("gptq_block", "gptq_block", "launches"),
+                   ("dequant_matmul", "dequant_matmul", "launches"),
+                   ("a8_matmul", "dequant_matmul", "launches_a8"),
+                   ("paged_attention", "paged_attention", "launches"))
+
+
+@contextlib.contextmanager
+def counted(counts: dict, label: str, expect=()):
+    """Drive one main path with every launch counter set to 0 just before
+    it; just after, read them into the yielded dict, add them to
+    ``counts`` and require each kernel in ``expect`` to have launched
+    (on CUDA: the wrappers count launches of the kernels only)."""
+    import importlib
+
+    import torch
+
+    mods = {name: importlib.import_module(f"tgq_torch.kernels.{mod}")
+            for name, mod, _ in KERNEL_COUNTERS}
+    for name, _, attr in KERNEL_COUNTERS:
+        setattr(mods[name], attr, 0)
+    got: dict[str, int] = {}
+    yield got
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for name, _, attr in KERNEL_COUNTERS:
+        got[name] = getattr(mods[name], attr)
+        counts[name] = counts.get(name, 0) + got[name]
+    log(f"[phase9] {label}: launches {got}")
+    if torch.cuda.is_available():
+        assert all(got[k] > 0 for k in expect), (label, got, expect)
+
+
+def quiet(fn, *args, **kw):
+    """``fn``'s result with its standard output kept out of the log (the
+    table runners print their tables; the phase prints what it checks)."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def phase9a_equalized_decode(dev, counts: dict, preset: str, check_layers: int, steps: int,
+                             group_size: int = 128):
+    """Equalizers from ``estimate_kv_equalizers`` on 256 seeded tokens (the
+    serving CLI's), then paged decode at kv_bits 8 and 4 with and without
+    them against full-recompute ``forward`` under phase 7a's limit."""
+    import numpy as np
+
+    from tgq_torch.core.quant import QuantSpec
+    from tgq_torch.models import PRESETS
+    from tgq_torch.models.hf_import import init_packed_params
+    from tgq_torch.serve.kv_calibrate import estimate_kv_equalizers
+
+    cfg = dataclasses.replace(PRESETS[preset], num_layers=check_layers)
+    params = init_packed_params(cfg, QuantSpec(bits=4, group_size=group_size), seed=0, device=dev)
+    rel_tol = 0.03  # phase 7a's
+    calib = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(1, 256))
+    t0 = time.time()
+    with counted(counts, "9a equalizer calibration (K3 at t = 256)", ("dequant_matmul",)):
+        k_eq, v_eq = estimate_kv_equalizers(params, cfg, calib)
+    eq_s = time.time() - t0
+    for li in range(check_layers):
+        log(f"[phase9a] layer {li} equalizers: k_eq {k_eq[li].min():.4f}-{k_eq[li].max():.4f}, "
+            f"v_eq {v_eq[li].min():.4f}-{v_eq[li].max():.4f}")
+    assert all(np.isfinite(e).all() and (e > 0).all() for e in (k_eq, v_eq))
+    assert k_eq.max() - k_eq.min() > 1e-3 and v_eq.max() - v_eq.min() > 1e-3  # not all ones
+    readings = {}
+    for kv_bits in (8, 4):
+        for label, eq in (("equalized", (k_eq, v_eq)), ("no equalizers", None)):
+            for ref in ("unquantized", "as stored"):
+                with counted(counts, f"9a kv{kv_bits} {label}, {ref} reference",
+                             ("dequant_matmul", "paged_attention")):
+                    readings[(kv_bits, label, ref)] = r = paged_vs_recompute(
+                        params, cfg, dev, steps, rel_tol, kv_bits=kv_bits, eq=eq,
+                        kv_reference=ref == "as stored")
+                log(f"[phase9a] kv{kv_bits} {label} vs the {ref} reference: max|dlogit| / "
+                    f"max|logit| {r[0]:.4g} (max|logit| {r[1]:.2f}); greedy agrees on "
+                    f"{r[2]}/{r[3]} steps whose reference top-2 gap exceeds the tolerance")
+    for kv_bits in (8, 4):  # a control: the limit catches decode without the equalizers
+        with counted(counts, f"9a kv{kv_bits} fault control", ("paged_attention",)):
+            readings[(kv_bits, "fault: decode drops the equalizers", "as stored")] = r = \
+                paged_vs_recompute(params, cfg, dev, steps, rel_tol, fault="equalizers",
+                                   kv_bits=kv_bits, eq=(k_eq, v_eq), kv_reference=True)
+        log(f"[phase9a] kv{kv_bits} fault: decode drops the equalizers, vs the as stored "
+            f"reference: max|dlogit| / max|logit| {r[0]:.4g}")
+        assert r[0] > rel_tol, r
+    # phase 7a's limit: the equalized int8 cache against the unquantized
+    # model, and both equalized caches against the model whose last token
+    # attends what the cache stored (int4's own error is far above it)
+    held = [(8, "equalized", "unquantized"), (8, "equalized", "as stored"),
+            (4, "equalized", "as stored")]
+    for key in held:
+        rel, _, agree, decided = readings[key]
+        assert rel <= rel_tol and agree == decided, (key, readings[key])
+    r = {k: v[0] for k, v in readings.items()}
+    log(f"[phase9a] {cfg.name} x{check_layers} layers W4 g128, 2 slots, prefill + {steps} decode "
+        f"steps, equalized kv8 vs the unquantized model {r[(8, 'equalized', 'unquantized')]:.4f} "
+        f"(without equalizers {r[(8, 'no equalizers', 'unquantized')]:.4f}); equalized kv8 / kv4 "
+        f"vs the model attending the stored rows {r[(8, 'equalized', 'as stored')]:.4f} / "
+        f"{r[(4, 'equalized', 'as stored')]:.4f} (without equalizers "
+        f"{r[(8, 'no equalizers', 'as stored')]:.4f} / {r[(4, 'no equalizers', 'as stored')]:.4f})"
+        f", tolerance {rel_tol}; kv4 vs the unquantized model {r[(4, 'equalized', 'unquantized')]:.4f}"
+        f" (without equalizers {r[(4, 'no equalizers', 'unquantized')]:.4f}: int4's own error, "
+        f"not held); calibration {eq_s:.2f} s; {card_line()}")
+    del params
+
+
+def phase9b_serve(dev, counts: dict, preset: str, serve_layers=None, serve_args=None):
+    """``tgq_torch.cli.serve.run`` with ``--kv_equalize`` and the native
+    allocator at kv8 and at kv4 + A8 + an 8-bit head."""
+    from tgq_torch.cli.serve import build_parser, run
+    from tgq_torch.models import PRESETS
+
+    base = serve_args or ["--model_id", preset, "--w_bits", "4", "--group_size", "128",
+                          "--n_requests", "16", "--prompt_len", "128", "--gen_tokens", "64",
+                          "--max_slots", "8", "--page_size", "64", "--decode_chunk", "8"]
+    for extra, expect in ((["--kv_bits", "8"], ("dequant_matmul", "paged_attention")),
+                          (["--kv_bits", "4", "--a_bits", "8", "--lm_head_bits", "8"],
+                           ("dequant_matmul", "a8_matmul", "paged_attention"))):
+        args = build_parser().parse_args(base + extra + ["--kv_equalize", "--page_alloc",
+                                                         "native", "--device", dev.type])
+        full = PRESETS[args.model_id]
+        if serve_layers is not None:  # a cut depth, for rehearsals
+            PRESETS[args.model_id] = dataclasses.replace(full, num_layers=serve_layers)
+        t0 = time.time()
+        try:
+            with counted(counts, f"9b serve {' '.join(extra)} --kv_equalize", expect):
+                res = run(args)
+        finally:
+            PRESETS[args.model_id] = full
+        print(json.dumps(res), flush=True)
+        c = res["config"]
+        log(f"[phase9b] {' '.join(extra)} --kv_equalize: {res['value']} tok/s, decode-only "
+            f"{res['decode_only_tok_s']} tok/s, TTFT p50/p90/p99 {res['ttft_p50_s']}/"
+            f"{res['ttft_p90_s']}/{res['ttft_p99_s']} s, calibration {c['kv_equalize_s']:.2f} s, "
+            f"page allocator {c['page_alloc']} ({time.time() - t0:.1f} s with set-up); "
+            f"{card_line()}")
+        assert c["page_alloc"] == "native" and c["kv_equalizers"] == "calibrated", c
+        n_req, gen_tok = args.n_requests, args.gen_tokens
+        assert res["total_tokens"] == n_req * gen_tok, res
+        if args.a_bits == 8:
+            assert c["a_bits"] == 8, c
+
+
+def phase9c_soak(dev, counts: dict, soak_args) -> dict:
+    """``python -m tgq_torch.cli.serve_soak`` (its ``run``, in this process
+    so that the launch counters are read) with the native allocator."""
+    from tgq_torch.cli import serve_soak
+
+    args = serve_soak.build_parser().parse_args(soak_args + ["--device", dev.type,
+                                                             "--page_alloc", "native"])
+    t0 = time.time()
+    with counted(counts, "9c soak", ("dequant_matmul", "a8_matmul", "paged_attention")):
+        res = serve_soak.run(args)
+    print(json.dumps(res), flush=True)
+    log(f"[phase9c] soak: {res['done']}/{res['n_requests']} requests done, {res['tokens']} "
+        f"tokens in {res['wall_s']} s ({res['tok_s']} tok/s), {res['ended_by_eos']} ended by "
+        f"EOS, outside budget {res['bad']}, free pages {res['free_pages']} of "
+        f"{res['free_pages_start']} at the start, allocator {res['page_alloc']} "
+        f"({time.time() - t0:.1f} s with set-up); {card_line()}")
+    assert res["ok"] and not res["bad"] and res["page_alloc"] == "native", res
+    return res
+
+
+def k34_reference_ms(dev, name: str, n_out: int, n_in: int, t: int, a8: bool) -> float:
+    """Phase 5's timing of K3 (or K4 alone) at one shape, for a phase-9 run
+    without phase 5 (the same weights' maker, launch and timer)."""
+    import torch
+
+    from tgq_torch.kernels import dequant_matmul as KD
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    w = random_packed(n_out, n_in, 4, gen, dev)
+    x = torch.randn((t, n_in), generator=gen, device=dev).to(torch.bfloat16)
+    before = (KD.launches, KD.launches_a8)
+    if a8:
+        w8 = dataclasses.replace(w, act_bits=8)
+        x8, a = KD.quantize_activations(x)
+        ms = cuda_ms(lambda: KD.a8_matmul(x8, a, w8, out_dtype=torch.bfloat16), reps=20)
+    else:
+        ms = cuda_ms(lambda: KD.quantized_matmul(x, w), reps=20)
+    KD.launches, KD.launches_a8 = before
+    return ms
+
+
+def phase9d_timing_clis(dev, counts: dict, k34: dict, prof7c, preset: str,
+                        decode_layers=None, gptq_shapes=None, group_size: int = 128,
+                        ref_tol: float = 0.25):
+    """kernel_bench (t = 16, t = 8, t = 8 with A8), decode_bench at its
+    defaults and at phase 7c's shape, gptq_kernel_bench at the Qwen3-8B
+    module shapes; the t = 8 readings against phase 5's, decode_bench's
+    whole step against phase 7c's chunk timed between its chunks."""
+    from tgq_torch.cli import decode_bench, gptq_kernel_bench, kernel_bench
+    from tgq_torch.models import PRESETS
+
+    on_card = dev.type == "cuda"
+    kb = {}
+    for extra, expect in ((["--tokens", "16"], ("dequant_matmul",)),
+                          (["--tokens", "8"], ("dequant_matmul",)),
+                          (["--tokens", "8", "--a_bits", "8"], ("a8_matmul",))):
+        argv = ["--model_id", preset, "--w_bits", "4", "--group_size", str(group_size),
+                "--device", dev.type] + extra
+        with counted(counts, f"9d kernel_bench {' '.join(extra)}", expect):
+            res = quiet(kernel_bench.run, kernel_bench.build_parser().parse_args(argv))
+        kb[" ".join(extra)] = res
+        print(json.dumps(res), flush=True)
+        for r in res["shapes"]:
+            log(f"[phase9d] kernel_bench {' '.join(extra)}: {r['shape']} {r['ms']:.4f} ms, "
+                f"{r['weight_GB_s']} GB/s, {r['frac_peak']:.3f} of the HBM peak")
+        assert res["value"] is not None and len(res["shapes"]) == 4, res
+        assert all(r["frac_peak"] <= 1.0 for r in res["shapes"]), res["shapes"]
+    # the t = 8 readings against phase 5's of the same launches
+    cfg = PRESETS[preset]
+    for kernel, key in (("K3", "--tokens 8"), ("K4", "--tokens 8 --a_bits 8")):
+        for shape_name, p5_name, n_out, n_in in (
+                ("o_proj", "o", cfg.hidden_size, cfg.q_size),
+                ("down_proj", "down", cfg.hidden_size, cfg.intermediate_size)):
+            row = next(r for r in kb[key]["shapes"] if r["shape"].startswith(shape_name + " "))
+            ref = k34.get((kernel, p5_name, 4, 8))
+            src = "phase 5"
+            if ref is None and on_card:
+                ref, src = k34_reference_ms(dev, p5_name, n_out, n_in, 8, kernel == "K4"), \
+                    "phase 5's timing, rerun"
+            if ref is None:
+                continue
+            log(f"[phase9d] {kernel} {shape_name} t=8: kernel_bench {row['ms']:.4f} ms, {src} "
+                f"{ref:.4f} ms ({row['ms'] / ref - 1:+.1%})")
+            assert abs(row["ms"] / ref - 1) <= ref_tol, (kernel, shape_name, row["ms"], ref)
+
+    full = PRESETS[preset]
+    if decode_layers is not None:  # a cut depth, for rehearsals
+        PRESETS[preset] = dataclasses.replace(full, num_layers=decode_layers)
+    try:
+        runs = {}
+        for label, extra in (("defaults", []),
+                             ("phase 7c's shape", ["--slots", "8", "--kv_bits", "16",
+                                                   "--lm_head_bits", "16", "--context", "160"])):
+            argv = ["--model_id", preset, "--group_size", str(group_size),
+                    "--device", dev.type] + extra
+            between, walls7c = None, []
+            if extra:
+                # phase 7c's chunk, timed after each of decode_bench's chunks:
+                # the host's speed drifts by 30 % and more between windows of
+                # seconds, so the two are held in the same window
+                chunk7c, _ = decode_chunk_runner(dev, preset, layers=decode_layers)
+                chunk7c().cpu()
+
+                def between(chunk7c=chunk7c, walls7c=walls7c):
+                    t0 = time.time()
+                    chunk7c().cpu()
+                    walls7c.append((time.time() - t0) * 1e3 / 8)
+
+            with counted(counts, f"9d decode_bench {label}", ("dequant_matmul", "paged_attention")):
+                res = quiet(decode_bench.run, decode_bench.build_parser().parse_args(argv),
+                            between=between)
+            runs[label] = (res, sorted(walls7c))
+            print(json.dumps(res), flush=True)
+            comp = res["components"]
+            parts = sum(v for k, v in comp.items() if k != "composed_ms")
+            log(f"[phase9d] decode_bench {label} ({res['config']['slots']} slots x "
+                f"{res['config']['context']}, kv{res['config']['kv_bits']}, head "
+                f"{res['config']['lm_head_bits']}-bit, {res['config']['layers']} layers): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in comp.items())
+                + f"; sum of the parts {parts:.3f} ms beside the whole step "
+                f"{comp['composed_ms']:.3f} ms (the gap is the host's dispatch); {card_line()}")
+    finally:
+        PRESETS[preset] = full
+    res, walls7c = runs["phase 7c's shape"]
+    whole, wall = res["components"]["composed_ms"], walls7c[len(walls7c) // 2]
+    log(f"[phase9d] decode_bench whole step at phase 7c's shape {whole:.2f} ms vs phase 7c's "
+        f"chunk interleaved with it {wall:.2f} ms ({whole / wall - 1:+.1%}; 7c's chunks "
+        f"{walls7c[0]:.2f}-{walls7c[-1]:.2f} ms; phase 7c read "
+        + (f"{prof7c['wall_ms_per_step']:.2f} ms" if prof7c else "nothing: phase 7 did not run")
+        + ")")
+    assert abs(whole / wall - 1) <= ref_tol, (whole, walls7c)
+
+    argv = ["--w_bits", "4", "--group_size", str(group_size), "--block_size", "256",
+            "--device", dev.type]
+    if gptq_shapes:
+        argv += ["--shapes", gptq_shapes]
+    with counted(counts, "9d gptq_kernel_bench", ("gptq_block",)):
+        res = quiet(gptq_kernel_bench.run, gptq_kernel_bench.build_parser().parse_args(argv))
+    print(json.dumps(res), flush=True)
+    for shape, plain_s in res["results"]["plain"].items():
+        kernel_s = res["results"].get("kernel", {}).get(shape)
+        log(f"[phase9d] gptq_kernel_bench {shape} (block 256): plain {plain_s:.4f} s, kernel "
+            f"{kernel_s} s, codes bit-equal {res.get('codes_bit_equal', {}).get(shape)}")
+        if on_card:
+            assert kernel_s < plain_s and res["codes_bit_equal"][shape], (shape, res)
+
+
+def phase9e_tables(dev, counts: dict, tmp: str, model: str, n_samples: int, group_size: int):
+    """The table runners on GPT-2 from an HF checkpoint written as phase 8
+    writes it: run_benchmark (11 rows), run_baseline (2), run_experiments
+    at W4 on two ε, and extract_log over the run_benchmark output."""
+    import csv
+
+    from tgq_torch.cli import extract_log, run_baseline, run_benchmark, run_experiments
+
+    src = os.path.join(tmp, model)
+    cfg, nbytes, _ = write_hf_model(src, model, dev)
+    common = ["--model_id", src, "--dataset", "synthetic", "--n_samples", str(n_samples),
+              "--seq_len", str(cfg.seqlen), "--group_size", str(group_size),
+              "--device", dev.type]
+    t0 = time.time()
+    out = os.path.join(tmp, "bench")
+    with counted(counts, "9e run_benchmark", ("pchol_panel", "gptq_block")):
+        rows = quiet(run_benchmark.run, common + ["--solver", "pchol", "--out", out])
+    bench_s = time.time() - t0
+    for r in rows:
+        log(f"[phase9e] run_benchmark {r['name']:14s} {r['status']:4s} PPL {r['ppl']} "
+            f"({r['time_s']} s)")
+    assert [r["name"] for r in rows] == [e["name"] for e in run_benchmark.experiment_list("pchol")]
+    assert all(r["status"] == "OK" for r in rows), [r["status"] for r in rows]
+    ppl = {r["name"]: r["ppl"] for r in rows}
+    for name in ("Trunc_W4_Asym", "GPTQ_W4_Asym"):
+        assert math.isfinite(ppl[name]) and abs(ppl[name] / ppl["FP16_Baseline"] - 1) <= 0.05, (
+            name, ppl[name], ppl["FP16_Baseline"])
+    t0 = time.time()
+    with counted(counts, "9e run_baseline", ("gptq_block",)):
+        base_rows = quiet(run_baseline.run, common + ["--out", os.path.join(tmp, "base")])
+    base_s = time.time() - t0
+    log(f"[phase9e] run_baseline: " + ", ".join(
+        f"{r['name']} {r['status']} PPL {r['ppl']}" for r in base_rows))
+    assert [r["status"] for r in base_rows] == ["OK", "OK"], base_rows
+    t0 = time.time()
+    with counted(counts, "9e run_experiments", ("pchol_panel", "gptq_block")):
+        grid = quiet(run_experiments.run, common + [
+            "--solver", "pchol", "--eps_grid", "1e-6,1e-2", "--bits", "4",
+            "--out", os.path.join(tmp, "grid")])
+    grid_s = time.time() - t0
+    log(f"[phase9e] run_experiments: " + ", ".join(
+        f"{r['name']} {r['status']} PPL {r['ppl']}" for r in grid))
+    assert len(grid) == 4 and all(r["status"] == "OK" for r in grid), grid
+    summary = os.path.join(tmp, "summary.csv")
+    quiet(extract_log.main, [out, "--out", summary])
+    mods = sorted({r["module"] for r in csv.DictReader(open(summary))})
+    want = sorted({name.split(".")[-1] for name in ("attn.c_attn", "attn.c_proj", "mlp.c_fc",
+                                                    "mlp.c_proj")})
+    log(f"[phase9e] extract_log over run_benchmark: module types {mods}")
+    assert mods == want, (mods, want)
+    log(f"[phase9e] {cfg.name} ({cfg.num_layers} layers, {nbytes / 1e9:.3f} GB checkpoint): "
+        f"run_benchmark {bench_s:.1f} s, run_baseline {base_s:.1f} s, run_experiments "
+        f"{grid_s:.1f} s; PPL FP {ppl['FP16_Baseline']:.4f}, Trunc_W4_Asym "
+        f"{ppl['Trunc_W4_Asym']:.4f} ({ppl['Trunc_W4_Asym'] / ppl['FP16_Baseline'] - 1:+.3%}), "
+        f"GPTQ_W4_Asym {ppl['GPTQ_W4_Asym']:.4f} "
+        f"({ppl['GPTQ_W4_Asym'] / ppl['FP16_Baseline'] - 1:+.3%}); {card_line()}")
+
+
+def phase9f_kv_quality(dev, contexts=(128, 512, 2048, 8192)):
+    from tgq_torch.cli.kv_quality import run
+
+    rows = run(list(contexts), device=dev.type)
+    err = {(r["format"], r["context"]): r["rel_err"] for r in rows}
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    for n in contexts:
+        log(f"[phase9f] kv_quality context {n}: int8 {err[('int8', n)]:.6f} -> +eq "
+            f"{err[('int8+eq', n)]:.6f}, int4 {err[('int4', n)]:.6f} -> +eq "
+            f"{err[('int4+eq', n)]:.6f}")
+        assert err[("int8+eq", n)] < err[("int8", n)] and err[("int4+eq", n)] < err[("int4", n)]
+
+
+def phase9g_synthetic(dev, counts: dict, extra=()):
+    from tgq_torch.cli import synthetic_bench
+
+    args = synthetic_bench.build_parser().parse_args(["--device", dev.type, *extra])
+    t0 = time.time()
+    with counted(counts, "9g synthetic_bench", ("pchol_panel", "gptq_block")):
+        rows = quiet(synthetic_bench.run, args)
+    secs = time.time() - t0
+    rtn = {(r["dist"], r["bits"]): r["rel_output_error"] for r in rows if r["method"] == "rtn"}
+    for r in rows:
+        if r["bits"] == 4:
+            log(f"[phase9g] {r['dist']:10s} W4 {r['method']:6s} rank {r['rank']:4d} rel_err "
+                f"{r['rel_output_error']:.6f}")
+    for r in rows:
+        if r["method"] in ("pchol", "eigh") and r["bits"] == 4:
+            assert math.isfinite(r["rel_output_error"]), r
+            assert r["rel_output_error"] <= rtn[(r["dist"], 4)], r
+    log(f"[phase9g] synthetic_bench ({args.n_tokens} tokens x {args.n_features} features, "
+        f"{len(rows)} rows): {secs:.1f} s")
+
+
+def phase9_slice7(dev, counts: dict, k34=None, prof7c=None, preset: str = "qwen3-8b",
+                  check_layers: int = 4, steps: int = 16, serve_layers=None, serve_args=None,
+                  soak_args=("--n_requests", "512"), decode_layers=None, gptq_shapes=None,
+                  serve_group: int = 128, table_model: str = "gpt2", table_samples: int = 32,
+                  table_group: int = 128, kvq_contexts=(128, 512, 2048, 8192),
+                  synthetic_args=()) -> None:
+    """Phase 9 (see the module docstring); the keyword arguments cut sizes
+    for a rehearsal on the CPU."""
+    t_phase = time.time()
+    marks = {}
+
+    def mark(step):
+        marks[step] = round(time.time() - t_phase - sum(marks.values()), 1)
+
+    phase9a_equalized_decode(dev, counts, preset, check_layers, steps, serve_group)
+    mark("a")
+    phase9b_serve(dev, counts, preset, serve_layers, serve_args)
+    mark("b")
+    phase9c_soak(dev, counts, list(soak_args))
+    mark("c")
+    phase9d_timing_clis(dev, counts, k34 or {}, prof7c, preset, decode_layers, gptq_shapes,
+                        serve_group)
+    mark("d")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase9e_tables(dev, counts, tmp, table_model, table_samples, table_group)
+    mark("e")
+    phase9f_kv_quality(dev, kvq_contexts)
+    mark("f")
+    phase9g_synthetic(dev, counts, synthetic_args)
+    mark("g")
+    log(f"[phase9] equalizers, soak and harnesses: {time.time() - t_phase:.1f} s (by step "
+        f"{marks}); {card_line()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (all by default)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -1654,6 +2156,8 @@ def main() -> int:
           "source": "tgq_torch/kernels/csrc/gptq_block.cu",
           "replaces": "tgq/kernels/gptq_block.py:84", "library_ms": None}
     counts: dict[str, int] = {}
+    k34_readings: dict = {}
+    prof7c = None
     if 1 in phases:
         phase1_pchol(dev, k1)
     if 2 in phases:
@@ -1664,13 +2168,15 @@ def main() -> int:
         phase4_cli(dev)
     if 5 in phases:
         k3_group_check(dev)
-        phase5_matmul(dev, k3, k4)
+        phase5_matmul(dev, k3, k4, readings=k34_readings)
     if 6 in phases:
         phase6_attention(dev, k5)
     if 7 in phases:
-        phase7_serving(dev, counts)
+        prof7c = phase7_serving(dev, counts)[-1]
     if 8 in phases:
         phase8_families(dev, counts)
+    if 9 in phases:
+        phase9_slice7(dev, counts, k34_readings, prof7c)
     kernels = [k1, k2, k3, k4, k5]
     for k in kernels:
         k["launches"] = counts.get(k["name"], 0)

@@ -62,15 +62,21 @@ def test_cli_baseline_mode(tmp_path):
 @pytest.mark.parametrize("extra", [["--resume_dir", "r"], ["--kv_equalize"], ["--hf_export"],
                                    ["--profile_dir", "p"], ["--mode", "test"]])
 def test_later_slice_flags_raise(tmp_path, extra):
-    """The flags a later slice ported now run (each leaves its artifact);
-    --kv_equalize is still queued and raises."""
+    """The flags a later slice ported now run, each leaving its artifact
+    (--kv_equalize: equalizers in the checkpoint, one row of kv_heads *
+    head_dim positive entries a layer)."""
     from tgq_torch.cli.quantize import main
 
     out = tmp_path / "o"
     argv = TINY + ["--device", "cpu", "--save_path", str(out)]
     if extra == ["--kv_equalize"]:
-        with pytest.raises(NotImplementedError, match="queued"):
-            main(argv + extra)
+        from tgq_torch.core.checkpoint import load_quantized
+
+        assert main(argv + extra) == 0
+        _, cfg, qconf = load_quantized(str(out), device="cpu")
+        k_eq, v_eq = qconf["kv_equalizers"]
+        assert k_eq.shape == v_eq.shape == (cfg.num_layers, cfg.num_kv_heads * cfg.head_dim)
+        assert (k_eq > 0).all() and (v_eq > 0).all()
         return
     extra = [str(tmp_path / e) if e in ("r", "p") else e for e in extra]
     assert main(argv + extra) == 0

@@ -32,7 +32,16 @@ def test_no_jax_or_tgq_imports():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 38  # every module was imported
+    assert int(out.stdout.split()[0]) >= 58  # every module was imported
+    assert "tgq_torch._native" in _walk_names()  # the allocator's loader is covered
+
+
+def _walk_names() -> set:
+    import pkgutil
+
+    import tgq_torch
+
+    return {m.name for m in pkgutil.walk_packages(tgq_torch.__path__, "tgq_torch.")}
 
 
 def _no_cuda():

@@ -74,8 +74,14 @@ def test_checkpoint_path(tmp_path):
 @pytest.mark.parametrize("flag", [["--mesh_model", "2"], ["--mesh_data", "2"], ["--distributed"],
                                   ["--kv_equalize"], ["--profile_dir", "x"]])
 def test_queued_flags_raise(flag, tmp_path):
-    """The queued flags raise; --profile_dir, once queued, writes a trace
-    of the measured run."""
+    """The queued flags raise; --profile_dir and --kv_equalize, once
+    queued, run: a trace of the measured run, equalizers calibrated for an
+    int8 cache (and none for bf16 KV, as in the JAX CLI)."""
+    if flag[0] == "--kv_equalize":
+        for kv, want in (("8", "calibrated"), ("16", None)):
+            res = run(build_parser().parse_args(TINY + flag + ["--kv_bits", kv]))
+            assert res["total_tokens"] == 20 and res["config"]["kv_equalizers"] == want
+        return
     if flag[0] == "--profile_dir":
         res = run(build_parser().parse_args(TINY + ["--profile_dir", str(tmp_path / "x")]))
         assert res["total_tokens"] == 20

@@ -17,11 +17,17 @@ A port of the JAX package ``tgq`` beside it, module for module:
                          writer (``models.safetensors_io``).
 - ``tgq_torch.calib``    the layer-sequential calibration pipeline.
 - ``tgq_torch.eval``     strided sliding-window perplexity.
-- ``tgq_torch.serve``    paged KV cache and the continuous-batching engine
-                         (llama family).
+- ``tgq_torch.serve``    paged KV cache, static KV equalizers and the
+                         continuous-batching engine (llama family).
+- ``tgq_torch._native``  the C++ page allocator, built with g++ at first use.
 - ``tgq_torch.cli``      ``python -m tgq_torch.cli.quantize`` (presets, local
-                         HF directories, resume, HF export, traces) and
-                         ``python -m tgq_torch.cli.serve``.
+                         HF directories, resume, HF export, traces),
+                         ``serve`` and ``serve_soak``; the timing tools
+                         ``kernel_bench``, ``decode_bench`` and
+                         ``gptq_kernel_bench``; ``kv_quality``,
+                         ``synthetic_bench`` and the table runners
+                         ``run_benchmark``, ``run_experiments``,
+                         ``run_baseline`` and ``extract_log``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 Nothing here imports ``jax``, ``tgq``, ``safetensors``, ``transformers`` or

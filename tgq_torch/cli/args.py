@@ -79,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--no_save", action="store_true",
                    help="Skip saving model weights")
     o.add_argument("--kv_equalize", action="store_true",
-                   help="Calibrate per-channel KV equalizers (queued)")
+                   help="Calibrate per-channel KV equalizers into the checkpoint")
     o.add_argument("--hf_export", action="store_true",
                    help="Also write a dequantized-bf16 HF checkpoint")
     return p

@@ -7,8 +7,10 @@ the local HF cache (``tgq_torch.models.hf_import.resolve_model``).  The
 packed checkpoint is saved with ``tgq_torch.core.checkpoint``;
 ``--hf_export`` also writes a dequantized bf16 HF checkpoint to
 ``<save_path>/hf``, ``--resume_dir`` keeps finished layers across runs,
-``--profile_dir`` traces the quantization and ``--mode test`` runs the
-spectral consistency check instead.
+``--profile_dir`` traces the quantization, ``--kv_equalize`` stores KV
+equalizers calibrated on the first calibration sequences
+(``tgq_torch.serve.kv_calibrate``) in the checkpoint, and ``--mode test``
+runs the spectral consistency check instead.
 """
 from __future__ import annotations
 
@@ -25,9 +27,6 @@ def main(argv=None) -> int:
     from tgq_torch.utils import setup_logging
 
     args = get_args(argv)
-    if args.kv_equalize:
-        raise NotImplementedError("--kv_equalize (tgq/serve/kv_calibrate.py) is queued "
-                                  "in ROADMAP.md (queue 1)")
     setup_logging(args.save_path)
     log = logging.getLogger("tgq_torch.quantize")
 
@@ -95,9 +94,17 @@ def main(argv=None) -> int:
                                                      resume_dir=args.resume_dir)
         experiment_log["layer_stats"] = run_log["layer_stats"]
         experiment_log["metrics"].update(run_log["metrics"])
+        kv_eq = None
+        if args.kv_equalize:
+            from tgq_torch.serve.kv_calibrate import estimate_kv_equalizers
+
+            log.info("Calibrating per-channel KV equalizers (tgq_torch.serve.kv_calibrate)")
+            kv_eq = estimate_kv_equalizers(params, cfg, input_ids[: min(4, len(input_ids))],
+                                           attn_impl=args.attn_impl)
         if not args.no_save:
             log.info("Saving packed checkpoint to %s", args.save_path)
-            save_quantized(args.save_path, params, packed, cfg, dataclasses.asdict(qcfg))
+            save_quantized(args.save_path, params, packed, cfg, dataclasses.asdict(qcfg),
+                           kv_equalizers=kv_eq)
         if args.hf_export:
             from tgq_torch.models.hf_export import export_hf
 

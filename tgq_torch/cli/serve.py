@@ -6,6 +6,9 @@ RTN-packed weights, drives the continuous-batching engine with synthetic
 prompts (one warm-up wave, then the measured run, closed-loop or with
 Poisson arrivals), and prints one JSON line of metrics: tokens/s,
 decode-only tokens/s, TTFT percentiles, decode and prefill wall time.
+``--kv_equalize`` calibrates static KV equalizers on 256 seeded tokens
+for a quantized cache (a checkpoint's stored ones win); ``--page_alloc``
+picks the page allocator, and ``config.page_alloc`` says which ran.
 Runs on CUDA unless ``--device cpu``.
 """
 from __future__ import annotations
@@ -130,7 +133,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv_bits", type=int, default=16, choices=(16, 8, 4),
                     help="KV cache storage: bf16, int8 + scales, int4 + scales")
     ap.add_argument("--kv_equalize", action="store_true",
-                    help="calibrate KV equalizers (queued)")
+                    help="calibrate per-channel KV equalizers on 256 seeded tokens "
+                         "(kv_bits < 16; a checkpoint's stored ones win)")
+    ap.add_argument("--page_alloc", default="auto", choices=("auto", "native", "python"),
+                    help="page allocator backend (auto: native when it builds)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--arrival_rate", type=float, default=0.0,
                     help="open loop: Poisson arrivals at this rate (req/s); 0 = closed loop")
@@ -150,15 +156,24 @@ def run(args) -> dict:
     from tgq_torch.utils.precision import resolve_device
 
     for flag, on in (("--mesh_model", args.mesh_model), ("--mesh_data", args.mesh_data != 1),
-                     ("--distributed", args.distributed), ("--kv_equalize", args.kv_equalize)):
+                     ("--distributed", args.distributed)):
         if on:
             raise NotImplementedError(f"{flag} {_QUEUED}")
     device = resolve_device(args.device)
     params, cfg, ckpt_eq = load_or_make_model(args, device)
     k_eq = v_eq = None
+    kv_eq_s = None
     if ckpt_eq is not None and args.kv_bits < 16:
         k_eq, v_eq = ckpt_eq
         logging.info("[kv-eq] using checkpoint-stored per-channel equalizers")
+    elif args.kv_equalize and args.kv_bits < 16:
+        from tgq_torch.serve.kv_calibrate import estimate_kv_equalizers
+
+        calib = np.random.default_rng(args.seed + 1).integers(0, cfg.vocab_size, size=(1, 256))
+        t0 = time.time()
+        k_eq, v_eq = estimate_kv_equalizers(params, cfg, calib)
+        kv_eq_s = time.time() - t0
+        logging.info("[kv-eq] calibrated per-channel equalizers in %.1fs", kv_eq_s)
     max_pages_per_slot = -(-(args.prompt_len + args.gen_tokens + args.page_size)
                            // args.page_size)
     num_pages = args.num_pages or args.max_slots * max_pages_per_slot + 1
@@ -167,7 +182,8 @@ def run(args) -> dict:
         max_pages_per_slot=max_pages_per_slot, max_new_tokens=args.gen_tokens,
         temperature=args.temperature, seed=args.seed, decode_chunk=args.decode_chunk,
         kv_bits=args.kv_bits, kv_k_eq=k_eq, kv_v_eq=v_eq,
-        prefill_chunk_tokens=args.prefill_chunk_tokens, a_bits=args.a_bits)
+        prefill_chunk_tokens=args.prefill_chunk_tokens, a_bits=args.a_bits,
+        page_alloc=args.page_alloc)
     eng = Engine(params, cfg, scfg, device=device)
     del params
 
@@ -215,6 +231,10 @@ def run(args) -> dict:
             "slots": args.max_slots, "decode_chunk": args.decode_chunk,
             "prompt_len": args.prompt_len, "gen_tokens": args.gen_tokens,
             "n_requests": args.n_requests, "device": str(device),
+            "page_alloc": eng.pt.backend,
+            "kv_equalizers": ("checkpoint" if ckpt_eq is not None and k_eq is not None
+                              else "calibrated" if k_eq is not None else None),
+            "kv_equalize_s": kv_eq_s,
         },
     }
 

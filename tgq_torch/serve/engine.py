@@ -54,6 +54,8 @@ class ServeConfig:
     overlap_host: bool = True
     # padded prompt tokens per prefill dispatch (0 = one wave)
     prefill_chunk_tokens: int = 4096
+    # page allocator backend: "auto" (native when it builds), "native", "python"
+    page_alloc: str = "auto"
 
 
 @dataclasses.dataclass
@@ -141,7 +143,7 @@ class Engine:
                                        kv_bits=scfg.kv_bits, k_eq=scfg.kv_k_eq,
                                        v_eq=scfg.kv_v_eq, device=self.device)
         self.pt = PageTable(scfg.num_pages, scfg.page_size, scfg.max_slots,
-                            scfg.max_pages_per_slot)
+                            scfg.max_pages_per_slot, backend=scfg.page_alloc)
         self.slots: list[Optional[Request]] = [None] * scfg.max_slots
         self.queue: deque[Request] = deque()
         self.gen = torch.Generator(device=self.device).manual_seed(scfg.seed)

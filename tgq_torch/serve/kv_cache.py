@@ -7,24 +7,28 @@
   (``kv_bits=4``, uint8 split-half along the fused row, codes biased by
   8).  Scales are ``(layers, num_pages, kv_heads, scale_pad)`` f32; only
   the first ``page_size`` entries of the last axis are used.
-- A host-side allocator (:class:`PageTable`, the pure-Python backend)
+- A host-side allocator (:class:`PageTable`: the native C++ backend,
+  ``tgq_torch._native``, or the pure-Python one, with the same semantics)
   mapping each decode slot's logical blocks to physical pages.  Page 0 is
   the scratch page that freed slots' entries clamp to.
 - Writes update the pools in place (``index_put_``); a layer is the view
   ``cache.k[li]``.
 
-Not ported (ROADMAP.md): the C++ allocator, ``kv_write_token_all``, the
-TP chunk window and ``kv_calibrate``.
+Not ported (ROADMAP.md): the TP layout (``pack_segments > 1``) and its
+chunk window.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional
 
 import numpy as np
 import torch
 
 from tgq_torch.models.config import ModelConfig
+
+logger = logging.getLogger(__name__)
 
 
 def host_to_device(arr, device) -> torch.Tensor:
@@ -44,28 +48,57 @@ def scale_pad(page_size: int) -> int:
 
 
 class PageTable:
-    """Host-side page allocator + per-slot logical→physical mapping (the
-    JAX package's pure-Python backend)."""
+    """Host-side page allocator + per-slot logical→physical mapping.
+
+    Two backends with the JAX package's semantics: the native C++
+    allocator (``tgq_torch/_native/pagealloc.cc``, built with g++ at first
+    use) and a pure-Python one.  ``backend``: "auto" takes the native one
+    when it builds and the Python one otherwise, "native" raises when it
+    does not build, "python" never builds it.  :attr:`backend` says which
+    is live."""
 
     def __init__(self, num_pages: int, page_size: int, max_slots: int,
-                 max_pages_per_slot: int):
+                 max_pages_per_slot: int, backend: str = "auto"):
+        if backend not in ("auto", "native", "python"):
+            raise ValueError(f"PageTable: unknown backend {backend!r}")
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_slots = max_slots
         self.max_pages_per_slot = max_pages_per_slot
-        self._free = list(range(num_pages - 1, 0, -1))
-        self._table = [[-1] * max_pages_per_slot for _ in range(max_slots)]
-        self._lens = [0] * max_slots
+        self._native = None
+        if backend != "python":
+            from tgq_torch._native import NativeBuildError, get_page_alloc_cls
+
+            try:
+                self._native = get_page_alloc_cls()(
+                    num_pages=num_pages, page_size=page_size, max_slots=max_slots,
+                    max_pages_per_slot=max_pages_per_slot)
+            except NativeBuildError as e:
+                if backend == "native":
+                    raise
+                logger.warning("native page allocator unavailable, using Python: %s", e)
+        self.backend = "native" if self._native is not None else "python"
+        if self._native is not None:
+            self._tbuf = np.zeros((max_slots, max_pages_per_slot), np.int32)
+            self._lbuf = np.zeros((max_slots,), np.int32)
+        else:
+            self._free = list(range(num_pages - 1, 0, -1))
+            self._table = [[-1] * max_pages_per_slot for _ in range(max_slots)]
+            self._lens = [0] * max_slots
 
     def pages_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
 
     @property
     def num_free(self) -> int:
+        if self._native is not None:
+            return self._native.num_free()
         return len(self._free)
 
     @property
     def lens(self) -> list[int]:
+        if self._native is not None:
+            return [self._native.get_len(s) for s in range(self.max_slots)]
         return list(self._lens)
 
     def can_alloc(self, n_tokens: int) -> bool:
@@ -73,6 +106,8 @@ class PageTable:
 
     def alloc_slot(self, slot: int, n_tokens: int) -> tuple[int, ...]:
         """Allocate a slot's prompt pages; returns the physical pages."""
+        if self._native is not None:
+            return self._native.alloc_slot(slot, n_tokens)
         need = self.pages_needed(n_tokens)
         assert need <= self.max_pages_per_slot, (need, self.max_pages_per_slot)
         assert len(self._free) >= need, "page pool exhausted"
@@ -83,6 +118,9 @@ class PageTable:
 
     def extend(self, slot: int, n_new: int = 1) -> None:
         """Grow a slot by n_new tokens, allocating pages on crossing."""
+        if self._native is not None:
+            self._native.extend(slot, n_new)
+            return
         old = self._lens[slot]
         new = old + n_new
         have = self.pages_needed(old) if old else 0
@@ -92,6 +130,9 @@ class PageTable:
         self._lens[slot] = new
 
     def free_slot(self, slot: int) -> None:
+        if self._native is not None:
+            self._native.free_slot(slot)
+            return
         for i, p in enumerate(self._table[slot]):
             if p >= 0:
                 self._free.append(p)
@@ -103,6 +144,8 @@ class PageTable:
         a slot while an in-flight decode chunk may still write them; the
         caller hands them to :meth:`release_pages` once that chunk has
         provably completed."""
+        if self._native is not None:
+            return self._native.detach_slot(slot)
         pages = tuple(p for p in self._table[slot] if p >= 0)
         self._table[slot] = [-1] * self.max_pages_per_slot
         self._lens[slot] = 0
@@ -110,15 +153,23 @@ class PageTable:
 
     def release_pages(self, pages) -> None:
         """Return detached pages to the free pool."""
+        if self._native is not None:
+            self._native.release_pages(tuple(int(p) for p in pages))
+            return
         self._free.extend(int(p) for p in pages)
 
     def slot_pages(self, slot: int) -> tuple[int, ...]:
+        if self._native is not None:
+            return self._native.slot_pages(slot)
         return tuple(p for p in self._table[slot] if p >= 0)
 
     def device_tables(self, device="cpu"):
         """(table (slots, mpps) int32 — freed entries clamp to page 0 — and
         lens (slots,) int32), copied to ``device`` (fresh tensors: the host
         lists change while a dispatched step may still read these)."""
+        if self._native is not None:
+            self._native.fill_tables(self._tbuf, self._lbuf)
+            return host_to_device(self._tbuf, device), host_to_device(self._lbuf, device)
         t = np.asarray(self._table, np.int32)
         table = np.where(t < 0, 0, t).astype(np.int32)
         return (host_to_device(table, device),
@@ -259,6 +310,35 @@ def kv_write_token(cache: PagedKVCache, layer: int, pages: torch.Tensor,
     cache.v[layer, pages, offsets] = qv.reshape(slots, -1)
     cache.ks[layer, pages, :, offsets] = sk
     cache.vs[layer, pages, :, offsets] = sv
+    return cache
+
+
+def _eq_div_all(x: torch.Tensor, eq: Optional[torch.Tensor]) -> torch.Tensor:
+    """Divide (L, slots, kvh, d) rows by every layer's equalizer."""
+    if eq is None:
+        return x
+    L, _, kvh, d = x.shape
+    return x / eq.reshape(L, 1, kvh, d)
+
+
+def kv_write_token_all(cache: PagedKVCache, pages: torch.Tensor, offsets: torch.Tensor,
+                       k_all: torch.Tensor, v_all: torch.Tensor) -> PagedKVCache:
+    """Write one token's K/V per slot for ALL layers in one update (in
+    place).  pages/offsets: (slots,); k_all/v_all: (layers, slots, kvh, d)."""
+    L, slots = k_all.shape[:2]
+    pages, offsets = pages.long(), offsets.long()
+    if cache.ks is None:
+        cache.k[:, pages, offsets] = k_all.reshape(L, slots, -1).to(cache.k.dtype)
+        cache.v[:, pages, offsets] = v_all.reshape(L, slots, -1).to(cache.v.dtype)
+        return cache
+    qk, sk = _quant(cache)(_eq_div_all(k_all, cache.k_eq))  # codes, (L, slots, kvh)
+    qv, sv = _quant(cache)(_eq_div_all(v_all, cache.v_eq))
+    cache.k[:, pages, offsets] = qk.reshape(L, slots, -1)
+    cache.v[:, pages, offsets] = qv.reshape(L, slots, -1)
+    # ks (L, P, kvh, spad): the slice between the two advanced indices moves
+    # the broadcast (slots) dim to the front
+    cache.ks[:, pages, :, offsets] = sk.transpose(0, 1)
+    cache.vs[:, pages, :, offsets] = sv.transpose(0, 1)
     return cache
 
 
