@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases 0,5,6,7   # the serving slice only
     python3 chip_smoke.py --phases 0,8       # GPT-2 / OPT, HF checkpoints, resume
     python3 chip_smoke.py --phases 0,9       # equalizers, soak, harnesses, tables
+    python3 chip_smoke.py --phases 0,10      # tensor and data parallelism (runs phase 3's
+                                             # sweep itself when phase 3 is not asked for)
 
 Phases:
   0. the card's name and power limit; build the CUDA kernels from
@@ -61,9 +63,10 @@ Phases:
      model whose last token attends the rows the cache stored (int4's own
      error against the unquantized model is printed, 9x the limit), with a
      planted fault (decode without the equalizers) caught; (b) the serve
-     CLI at 36 layers with ``--kv_equalize`` and the native page
-     allocator, kv8 and kv4 + A8 + 8-bit head; (c) the serving soak
-     (``tgq_torch.cli.serve_soak``: 512 mixed requests, 128 slots, kv8,
+     CLI at 12 layers (cut from 36 to make room for phase 10) with
+     ``--kv_equalize`` and the native page allocator, kv8 and kv4 + A8 +
+     8-bit head; (c) the serving soak (``tgq_torch.cli.serve_soak``: 256
+     mixed requests, cut from 512, 128 slots, kv8,
      A8, EOS), every request within budget and the pages balanced; (d)
      ``kernel_bench`` (K3 at t = 16 and 8, K4 at t = 8; the t = 8
      readings within 25 % of phase 5's), ``decode_bench`` at its defaults
@@ -76,6 +79,25 @@ Phases:
      every context; (g) ``synthetic_bench``: pchol and eigh at or below
      RTN at W4.  Each path runs with the launch counters set to 0 just
      before it and read just after.
+ 10. Tensor and data parallelism, ranks started with the ``spawn`` method
+     and talking over gloo on the one card: (a) K5's chunk-window mode
+     (``w_live``, ``return_stats``) against its plain version at the
+     rank-local shape of Qwen3-8B under TP 2 (16 q / 4 kv heads), bf16 /
+     int8 / int4, w_live 0, 1, 7, 8, an idle slot and empty pool ranges,
+     its partials merged with ``_window_partial`` against non-window K5,
+     timed beside non-window K5; (b) TP 2 decode at Qwen3-8B width, 4
+     layers, W4 g128, two chunks of 8 steps in chunk-window mode, every
+     step's logits against full recompute under phase 7a's limit (kv16 and
+     kv8 against the unquantized model, kv4 against the model attending the
+     rows the ranks stored), the ranks' tokens identical; (c) ``python -m
+     tgq_torch.cli.serve --mesh_model 2`` at 36 layers, kv16 and kv4 + A8 +
+     an 8-bit head, 8 requests of 128 + 32 tokens, beside phase 7b, the
+     decode steps' collectives counted and timed apart from the prefill's
+     (``--time_collectives``); (d)
+     ``quantize_model(mesh=make_mesh(data=2, model=2))`` on 4 ranks at phase
+     3's setting, held to phase 3's run (Gram error at most 2x, < 2 % of
+     q_proj's weights moved, PPL within 2 %).  A failure in any rank fails
+     the phase.
 
 Every mismatch raises; the script exits 0 only if every phase passed.
 The second-to-last line is a JSON object with one entry per kernel, the
@@ -364,10 +386,14 @@ def layer0_gram_check(params, cfg, calib, qcfg, dev) -> None:
             f"pchol rank {rank}; q_proj rel_err f32 build {rels[0]:.4f}, f64 build "
             f"{rels[1]:.4f}, rtn {rtn:.4f}")
     assert errs["HessianAccumulator"] <= 1e-5, errs
+    return errs
 
 
 def phase3_main_path(dev, counts: dict, preset: str = "qwen3-8b", n_samples: int = 32,
-                     seq: int = 2048, eval_tokens: int = 8192, group_size: int = 128) -> None:
+                     seq: int = 2048, eval_tokens: int = 8192, group_size: int = 128) -> dict:
+    """The quantize main path; returns what phase 10d compares its mesh run
+    with: layer 0's q/k/v Gram error, the modules' pchol ranks, layer 0's
+    written-back q_proj (on the host), the quantized PPL and s/layer."""
     import torch
 
     from tgq_torch.calib import QuantizeConfig, quantize_model, synthetic_calibration
@@ -399,7 +425,7 @@ def phase3_main_path(dev, counts: dict, preset: str = "qwen3-8b", n_samples: int
     qcfg = QuantizeConfig(mode="pchol", w_bits=4, group_size=group_size, eps=1e-6,
                           threshold_method="energy", batch_size=8)
     t0 = time.time()
-    layer0_gram_check(params, cfg, calib, qcfg, dev)
+    gram_errs = layer0_gram_check(params, cfg, calib, qcfg, dev)
     log(f"[phase3] Gram check {time.time()-t0:.1f} s")
     timers = PhaseTimers(sync=True)
     K1.launches = 0
@@ -449,6 +475,11 @@ def phase3_main_path(dev, counts: dict, preset: str = "qwen3-8b", n_samples: int
     log(f"[phase3] quantized PPL {q_ppl:.4f} vs unquantized {base_ppl:.4f} "
         f"({(q_ppl / base_ppl - 1) * 100:+.3f} %, {time.time()-t0:.1f} s)")
     assert math.isfinite(q_ppl) and abs(q_ppl / base_ppl - 1) <= 0.05, (q_ppl, base_ppl)
+    return {"gram_err": gram_errs["HessianAccumulator"],
+            "ranks": {st["name"]: st["rank"] for st in run_log["layer_stats"]},
+            "q0": params["model"]["layers"][0]["self_attn"]["q_proj"]["w"].cpu(),
+            "q1": params["model"]["layers"][1]["self_attn"]["q_proj"]["w"].cpu(),
+            "ppl": q_ppl, "s_per_layer": secs / cfg.num_layers}
 
 
 def phase4_cli(dev) -> None:
@@ -967,14 +998,16 @@ def bf16_exact(params):
     return walk(params)
 
 
-def stored_kv_attention(cfg, cache, table_row, eq):
+def stored_kv_attention(cfg, cache, table_row, eq, window=None):
     """A causal attention for ``forward`` whose last query attends the K/V
     rows the paged cache holds for its earlier tokens (dequantized, times
     the equalizers ``eq`` = (k_eq, v_eq) when given) and its own row as
     computed: the attention of the last token over exactly what the cache
     stored.  The other queries attend the fresh rows (the last token's
     logits do not depend on them).  f32 softmax; the layer is counted from
-    the calls, which ``forward`` makes in layer order."""
+    the calls, which ``forward`` makes in layer order.  ``window`` = (wk,
+    wv, p0, w): a decode chunk's raw rows (L, kvh, W, d) of this slot, which
+    stand for positions p0 .. p0+w-1 (not yet in the pools)."""
     import torch
 
     from tgq_torch.models.causal_lm import _naive_causal_attention
@@ -990,10 +1023,15 @@ def stored_kv_attention(cfg, cache, table_row, eq):
         out = _naive_causal_attention(q, k, v).float()
         quantized = cache.ks is not None
         kg, vg = gather_pools(cache.k[li], cache.v[li], cache.ks[li] if quantized else None,
-                              cache.vs[li] if quantized else None, table_row, kvh)
+                              cache.vs[li] if quantized else None, table_row, kvh,
+                              segments=cache.pack_segments)
         if eq is not None:
             kg = kg * torch.as_tensor(eq[0][li], device=kg.device).reshape(kvh, d)
             vg = vg * torch.as_tensor(eq[1][li], device=vg.device).reshape(kvh, d)
+        if window is not None and window[3] > 0:  # raw rows: no equalizers
+            wk, wv, p0, w = window
+            kg[0, p0:p0 + w] = wk[li, :, :w].transpose(0, 1).float()
+            vg[0, p0:p0 + w] = wv[li, :, :w].transpose(0, 1).float()
         rows = lambda g, x: torch.cat([g[:, :n - 1], x[:, -1:].float()], dim=1)  # noqa: E731
         kl = rows(kg, k).repeat_interleave(h // kvh, dim=2)
         vl = rows(vg, v).repeat_interleave(h // kvh, dim=2)
@@ -2117,9 +2155,450 @@ def phase9_slice7(dev, counts: dict, k34=None, prof7c=None, preset: str = "qwen3
         f"{marks}); {card_line()}")
 
 
+# ------------------------------- slice 8: tensor and data parallelism (10)
+
+def phase10a_window(dev, k5: dict, time_it=None, slots: int = 8, W: int = 8, H: int = 16,
+                    kvh: int = 4, d: int = 128, max_len: int = 2048) -> None:
+    """K5's chunk-window mode (``w_live``, ``return_stats``) against its plain
+    version at the rank-local shape of Qwen3-8B under TP 2 (16 q / 4 kv heads,
+    d 128): bf16 / int8 / int4 pools, w_live 0, 1, W-1 and W, stats on and
+    off, an idle slot, lengths across the split boundaries and lengths whose
+    pool range is empty (len <= w_live + 1).  m and l within rtol = atol =
+    1e-5, o too after both sides are divided by the plain version's l (the
+    un-normalised sum grows with the context); two launches bit-identical.
+    Then K5's partials merged with ``_window_partial`` against non-window K5
+    over the same tokens (bf16 pools; the window rows' values set to zero in
+    both, so the window's bf16 rounding of its probabilities, the JAX
+    package's, drops out): within 1e-5.  Timed beside non-window K5."""
+    import torch
+
+    from tgq_torch.kernels import paged_attention as K5
+    from tgq_torch.serve.decode import _merge_partials, _window_partial
+
+    time_it = time_it or cuda_ms
+    gen = torch.Generator(device=dev).manual_seed(10)
+    li, page = 1, 64
+    mpps = -(-max_len // page)
+    splits = K5._k5_plan(slots, kvh, mpps, page).splits
+    worst = worst_l = 0.0   # max |d| of o (normalised) and m; max relative |d| of l
+    for kv_bits in (16, 8, 4):
+        for w_live in (0, 1, W - 1, W):
+            lengths = [0, 1, w_live + 1, 32 * splits + w_live + 2, max_len, 65 + w_live,
+                       33 + w_live, 2 + w_live][:slots]
+            q, k, v, ks, vs, lens, table, kc, vc = attention_case(
+                dev, gen, slots, kv_bits, lengths, H=H, kvh=kvh, d=d, mpps=mpps)
+            pools = [None if t is None else t[li] for t in (k, v, ks, vs)]
+            for stats in (True, False):
+                kw = dict(num_kv_heads=kvh, w_live=w_live, return_stats=stats)
+                before = K5.launches
+                got = K5.paged_decode_attention(q, *pools, lens, table, kc, vc, **kw)
+                again = K5.paged_decode_attention(q, *pools, lens, table, kc, vc, **kw)
+                K5.launches = before
+                ref = K5.paged_decode_attention_plain(q, *pools, lens, table, kc, vc, **kw)
+                got, again, ref = ((t,) if not stats else t for t in (got, again, ref))
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), (kv_bits, w_live)
+                if stats:
+                    scale = ref[2].clamp(min=1.0)
+                    pairs = ((got[0] / scale, ref[0] / scale), (got[1], ref[1]))
+                    idle = lens == 0
+                    assert bool((got[0][idle] == 0).all() and (got[2][idle] == 0).all()
+                                and (got[1][idle] == K5.DEFAULT_MASK_VALUE).all())
+                    assert torch.allclose(got[2], ref[2], rtol=1e-5, atol=1e-5)
+                    worst_l = max(worst_l, float(((got[2] - ref[2]).abs() / scale).max()))
+                else:
+                    pairs = ((got[0], ref[0]),)
+                for a, b in pairs:
+                    err = float((a - b).abs().max())
+                    worst = max(worst, err)
+                    assert torch.allclose(a, b, rtol=1e-5, atol=1e-5), (kv_bits, w_live,
+                                                                        stats, err)
+        log(f"[phase10a] K5 window mode kv{kv_bits}, w_live 0/1/{W - 1}/{W}, stats on and "
+            f"off: within 1e-5 of the plain version (so far max|d| of o and m {worst:.3e}, "
+            f"of l relative {worst_l:.3e}), two launches bit-identical")
+    # partials + window == non-window K5 over the same tokens (bf16 pools)
+    lengths = [0] + [W + 2 + 37 * i for i in range(slots - 1)]
+    q, k, v, ks, vs, lens, table, kc, vc = attention_case(
+        dev, gen, slots, 16, lengths, H=H, kvh=kvh, d=d, mpps=mpps)
+    q = q.to(torch.bfloat16).float()   # the window attends a bf16 query
+    kp, vp = k[li], v[li]
+    wk = torch.zeros((1, slots, kvh, W, d), dtype=torch.bfloat16, device=dev)
+    wv = torch.zeros_like(wk)
+    for s_, n in enumerate(lengths):
+        for j in range(W if n else 0):
+            t = n - 1 - W + j
+            pg, off = int(table[s_, t // page]), t % page
+            wk[0, s_, :, j] = kp[pg, off].reshape(kvh, d)
+            vp[pg, off] = 0   # the window's rows carry zero values in both paths
+    full = K5.paged_decode_attention(q, kp, vp, None, None, lens, table, kc, vc,
+                                     num_kv_heads=kvh)
+    part = K5.paged_decode_attention(q, kp, vp, None, None, lens, table, kc, vc,
+                                     num_kv_heads=kvh, w_live=W, return_stats=True)
+    merged = _merge_partials(part, _window_partial(q, (wk, wv), 0, W, kvh))
+    busy = lens > 0
+    merge_err = float((merged[busy] - full[busy]).abs().max())
+    assert torch.allclose(merged[busy], full[busy], rtol=1e-5, atol=1e-5), merge_err
+    # time window K5 beside non-window K5 at the serving geometry (8 x 192)
+    lengths = [192] * slots
+    q, k, v, ks, vs, lens, table, kc, vc = attention_case(
+        dev, gen, slots, 16, lengths, H=H, kvh=kvh, d=d, mpps=4)
+    kp, vp = k[li], v[li]
+    before = K5.launches
+    win_ms = time_it(lambda: K5.paged_decode_attention(
+        q, kp, vp, None, None, lens, table, kc, vc, num_kv_heads=kvh, w_live=W - 1,
+        return_stats=True), reps=50)
+    full_ms = time_it(lambda: K5.paged_decode_attention(
+        q, kp, vp, None, None, lens, table, kc, vc, num_kv_heads=kvh), reps=50)
+    K5.launches = before
+    plain_ms = time_it(lambda: K5.paged_decode_attention_plain(
+        q, kp, vp, None, None, lens, table, kc, vc, num_kv_heads=kvh, w_live=W - 1,
+        return_stats=True), reps=3)
+    wq = torch.zeros((1, slots, kvh, W, d), dtype=torch.bfloat16, device=dev)
+    part_ms = time_it(lambda: _window_partial(q, (wq, wq), 0, W - 1, kvh), reps=20)
+    toks = [n - W for n in lengths]  # pool rows read: len - 1 - w_live
+    b_ms, b_by = bound_ms(attention_bytes(16, [t + 1 for t in toks], slots, H, kvh, d)
+                          + 8 * slots * H, 4.0 * H * d * sum(toks))
+    log(f"[phase10a] K5 window partials + _window_partial vs non-window K5 (bf16): max|d| "
+        f"{merge_err:.3e}; 8 slots x 192, 16/4 heads: window K5 {win_ms * 1e3:.1f} us/launch "
+        f"(w_live {W - 1}, stats), non-window K5 {full_ms * 1e3:.1f} us, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}), plain {plain_ms * 1e3:.1f} us, _window_partial "
+        f"{part_ms * 1e3:.1f} us; {card_line()}")
+    k5.update(window_ms=win_ms, window_nonwindow_ms=full_ms, window_plain_ms=plain_ms,
+              window_bound_ms=b_ms, window_max_abs_err=max(worst, merge_err),
+              window_partial_ms=part_ms)
+
+
+def gather_dim(x, mesh, dim: int):
+    """The model ranks' ``x`` concatenated along ``dim``."""
+    from tgq_torch.parallel.mesh import all_gather_last
+
+    return all_gather_last(x.movedim(dim, -1).contiguous(), mesh, "model").movedim(-1, dim)
+
+
+def rank_device():
+    """A spawned rank's device: its card (``init_distributed`` set it), or
+    the CPU in a rehearsal."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() \
+        else torch.device("cpu")
+
+
+def tp_decode_rank(preset: str, layers: int, kv_list, chunk: int, n_chunks: int,
+                   group_size: int = 128) -> dict:
+    """One of 2 ranks of phase 10b: the packed model's TP shards, prefill of
+    two prompts (100 and 37 tokens), then ``n_chunks`` decode chunks of
+    ``chunk`` steps in chunk-window mode, each step's logits held on rank 0
+    against full-recompute ``forward`` (``paged_vs_recompute``'s reference:
+    the dequantized dense weights, SDPA; for int4 KV the last token attends
+    the rows the ranks' caches and windows hold, ``stored_kv_attention``)."""
+    import torch
+
+    from tgq_torch.core.quant import QuantSpec
+    from tgq_torch.kernels import dequant_matmul as KD
+    from tgq_torch.kernels import paged_attention as K5
+    from tgq_torch.models import PRESETS
+    from tgq_torch.models import causal_lm as CL
+    from tgq_torch.models.hf_import import init_packed_params
+    from tgq_torch.parallel import local_config, make_mesh, mark_tp_kinds, serving_mesh_scope
+    from tgq_torch.parallel import shard_params
+    from tgq_torch.serve.decode import _decode_core, fuse_packed_projections, prefill
+    from tgq_torch.serve.kv_cache import PagedKVCache, PageTable, window_flush, window_init
+
+    dev = rank_device()
+    mesh = make_mesh(data=1, model=2)
+    cfg = dataclasses.replace(PRESETS[preset], num_layers=layers)
+    params = init_packed_params(cfg, QuantSpec(bits=4, group_size=group_size), seed=0,
+                                device=dev)
+    local = fuse_packed_projections(shard_params(mark_tp_kinds(params), mesh))
+    run_cfg = local_config(cfg, mesh)
+    dense = dense_reference(params) if mesh.model_rank == 0 else None
+    del params
+    rel_tol, page, mpps = 0.03, 64, 4
+    real_causal = CL.causal_attention
+    out = {}
+    for kv_bits in kv_list:
+        KD.launches = KD.launches_a8 = K5.launches = 0
+        t0 = time.time()
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+                   for n in (100, 37)]
+        cache = PagedKVCache.init(run_cfg, 2 * mpps + 1, page, kv_bits=kv_bits, device=dev)
+        pt = PageTable(2 * mpps + 1, page, 2, mpps, backend="python")
+        seqs, toks = [], []
+        with serving_mesh_scope(mesh):
+            for s_, p in enumerate(prompts):
+                pages = pt.alloc_slot(s_, len(p))
+                ids = torch.zeros((1, len(pages) * page), dtype=torch.long, device=dev)
+                ids[0, :len(p)] = torch.tensor(p, device=dev)
+                logits, cache = prefill(local, cache, run_cfg, torch.tensor(pages, device=dev),
+                                        ids, len(p))
+                seqs.append(list(p))
+                toks.append(int(logits.argmax()))
+        live = torch.ones(2, dtype=torch.int32, device=dev)
+        worst, agree, decided, all_toks = 0.0, 0, 0, []
+        for _ in range(n_chunks):
+            lens0 = [len(sq) + 1 for sq in seqs]
+            for s_ in range(2):
+                pt.extend(s_, chunk)
+            table, _ = pt.device_tables(dev)
+            lens = torch.tensor(lens0, dtype=torch.int32, device=dev)
+            pos0 = lens - 1
+            win = window_init(cache, 2, chunk)
+            for i in range(chunk):
+                for s_ in range(2):
+                    seqs[s_].append(toks[s_])
+                tokens = torch.tensor(toks, dtype=torch.int32, device=dev)
+                with serving_mesh_scope(mesh):
+                    logits = _decode_core(local, cache, run_cfg, table, lens, tokens, lens - 1,
+                                          live, win=win, w_live=i)
+                full = None
+                if kv_bits == 4:  # rank 0's reference reads both ranks' rows
+                    pools = [None if t is None else gather_dim(t, mesh, d) for t, d in (
+                        (cache.k, 3), (cache.v, 3), (cache.ks, 2), (cache.vs, 2))]
+                    full = PagedKVCache(*pools, num_kv_heads=cfg.num_kv_heads,
+                                        pack_segments=mesh.model)
+                    wins = [gather_dim(w, mesh, 2) for w in win]
+                if mesh.model_rank == 0:
+                    for s_ in range(2):
+                        if full is not None:
+                            CL.causal_attention = stored_kv_attention(
+                                cfg, full, table[s_:s_ + 1], None,
+                                window=(wins[0][:, s_], wins[1][:, s_], int(pos0[s_]), i))
+                        try:
+                            ref = CL.forward(dense, cfg, torch.tensor([seqs[s_]], device=dev))[
+                                0, -1]
+                        finally:
+                            CL.causal_attention = real_causal
+                        top_s = float(ref.abs().max())
+                        worst = max(worst, float((logits[s_] - ref).abs().max()) / top_s)
+                        top2 = torch.topk(ref, 2).values
+                        if float(top2[0] - top2[1]) > rel_tol * top_s:
+                            decided += 1
+                            agree += int(int(logits[s_].argmax()) == int(ref.argmax()))
+                toks = logits.argmax(dim=-1).tolist()
+                all_toks.append(list(toks))
+                lens = lens + 1
+            window_flush(cache, win, table, pos0, chunk, live=live)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[kv_bits] = {"worst": worst, "agree": agree, "decided": decided,
+                        "tokens": all_toks, "seconds": time.time() - t0,
+                        "launches": {"dequant_matmul": KD.launches,
+                                     "a8_matmul": KD.launches_a8,
+                                     "paged_attention": K5.launches}}
+    return out
+
+
+def phase10c_serve(dev, counts: dict, single=None, preset: str = "qwen3-8b",
+                   serve_args=None) -> list:
+    """``python -m tgq_torch.cli.serve --mesh_model 2`` (the command starts
+    its own two ranks, gloo on the one card) at kv16 and at kv4 + A8 + an
+    8-bit head; every request must finish and K3 / K4 / K5 must launch on
+    both ranks.  Printed beside phase 7b's single-rank runs (``single``)."""
+    base = serve_args or ["--model_id", preset, "--w_bits", "4", "--group_size", "128",
+                          "--n_requests", "8", "--prompt_len", "128", "--gen_tokens", "32",
+                          "--max_slots", "8", "--page_size", "64", "--decode_chunk", "8"]
+    results = []
+    for i, extra in enumerate((["--kv_bits", "16"],
+                               ["--kv_bits", "4", "--a_bits", "8", "--lm_head_bits", "8"])):
+        cmd = [sys.executable, "-m", "tgq_torch.cli.serve", *base, *extra, "--mesh_model", "2",
+               "--time_collectives", "--device", dev.type]
+        t0 = time.time()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        secs = time.time() - t0
+        assert proc.returncode == 0, (cmd, proc.stderr[-4000:])
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(res), flush=True)
+        c, par = res["config"], res["config"]["parallel"]
+        n_req = int(base[base.index("--n_requests") + 1])
+        gen_tok = int(base[base.index("--gen_tokens") + 1])
+        assert res["total_tokens"] == n_req * gen_tok, res
+        assert (par["data"], par["model"], par["backend"]) == (1, 2, "gloo"), par
+        for got in c["rank_launches"]:
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+            if dev.type == "cuda":
+                assert got["dequant_matmul"] > 0 and got["paged_attention"] > 0, got
+                assert got["a8_matmul"] > 0 or "--a_bits" not in extra, got
+        step_ms = res["decode_wall_s"] / max(c["decode_steps"], 1) * 1e3
+        ar_ms = par["decode_collective_ms_per_step"]
+        wait_ms = par["decode_collective_wait_ms_per_step"]
+        by = par["collectives_by_phase"]
+        assert by["decode"]["calls"] > 0 and ar_ms > 0 and wait_ms >= 0, par
+        ref = ""
+        if single is not None and i < len(single):
+            s1 = single[0 if i == 0 else -1]
+            s1_ms = s1["decode_wall_s"] / max(s1["config"].get("decode_steps") or 1, 1) * 1e3
+            ref = (f"; phase 7b single rank ({s1['config']['n_requests']} x "
+                   f"{s1['config']['gen_tokens']}): {s1['value']} tok/s, TTFT p50 "
+                   f"{s1['ttft_p50_s']} s, decode step {s1_ms:.2f} ms")
+        log(f"[phase10c] TP 2 {' '.join(extra)}: {res['value']} tok/s, decode-only "
+            f"{res['decode_only_tok_s']} tok/s, TTFT p50/p90/p99 {res['ttft_p50_s']}/"
+            f"{res['ttft_p90_s']}/{res['ttft_p99_s']} s, decode step {step_ms:.2f} ms "
+            f"({c['decode_steps']} steps, collectives timed), "
+            f"{par['decode_collectives_per_step']} decode collectives a step: {ar_ms:.2f} ms "
+            f"in the collectives ({ar_ms / step_ms:.1%} of the step) and {wait_ms:.2f} ms "
+            f"waiting for the other rank at their barriers ({wait_ms / step_ms:.1%}); prefill "
+            f"{by.get('prefill')}; launches by rank {c['rank_launches']} ({secs:.1f} s with "
+            f"set-up){ref}; {card_line()}")
+        results.append(res)
+    return results
+
+
+def dp_tp_quantize_rank(preset: str, n_samples: int, seq: int, group_size: int,
+                        ref_path: str, eval_tokens: int) -> dict:
+    """One of 4 ranks of phase 10d: layer 0's q/k/v Hessian under the (data
+    2 x model 2) mesh, then ``quantize_model(mesh=...)`` at phase 3's
+    setting; rank 0 holds the result to phase 3's (``ref_path``)."""
+    import torch
+
+    from tgq_torch.calib import QuantizeConfig, quantize_model, synthetic_calibration
+    from tgq_torch.calib.data import synthetic_eval_stream
+    from tgq_torch.eval import perplexity_from_token_stream
+    from tgq_torch.kernels import gptq_block as K2
+    from tgq_torch.kernels import pchol_panel as K1
+    from tgq_torch.models import PRESETS
+    from tgq_torch.models.causal_lm import attn_input, init_params
+    from tgq_torch.parallel import dp_hessian_gram, make_mesh
+
+    dev = rank_device()
+    mesh = make_mesh(data=2, model=2)
+    cfg = dataclasses.replace(PRESETS[preset], num_layers=2)
+    params = init_params(cfg, seed=0, device=dev)
+    calib = synthetic_calibration(cfg.vocab_size, n_samples, seq, seed=42)
+    qcfg = QuantizeConfig(mode="pchol", w_bits=4, group_size=group_size, eps=1e-6,
+                          threshold_method="energy", batch_size=8)
+    # layer 0's q/k/v Hessian as the mesh sweep forms it: this rank's data
+    # share in whole batches, the batch Grams summed over "data" in order
+    share, bs = n_samples // mesh.data, qcfg.batch_size
+    emb, lp0 = params["model"]["embed_tokens"]["weight"], params["model"]["layers"][0]
+    ids = torch.from_numpy(calib.astype("int64")).to(dev)
+    mine = ids[mesh.data_rank * share:(mesh.data_rank + 1) * share]
+    h = dp_hessian_gram([attn_input(lp0, cfg, emb[mine[j:j + bs]].to(torch.bfloat16))
+                         for j in range(0, share, bs)], mesh) / ids.numel()
+    out = {}
+    if mesh.rank == 0:
+        h64 = sum(x.reshape(-1, cfg.hidden_size).double().T @ x.reshape(-1, cfg.hidden_size)
+                  .double() for x in (attn_input(lp0, cfg, emb[ids[j:j + 8]].to(torch.bfloat16))
+                                      for j in range(0, n_samples, 8))) / ids.numel()
+        out["gram_err"] = float((h.double() - h64).abs().max() / h64.abs().max())
+        del h64
+    del h
+    K1.launches = K2.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    params, packed, run_log = quantize_model(params, cfg, calib, qcfg, device=dev, mesh=mesh)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out.update(seconds=time.time() - t0, launches={"pchol_panel": K1.launches,
+                                                   "gptq_block": K2.launches},
+               ranks={st["name"]: st["rank"] for st in run_log["layer_stats"]},
+               packed=len(packed))
+    # the other ranks give their memory back before rank 0's evaluation
+    del packed, run_log
+    if mesh.rank != 0:
+        del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if mesh.rank == 0:
+        ref = torch.load(ref_path, weights_only=False)
+        for li in (0, 1):   # layer 1's inputs pass through TP forwards
+            q = params["model"]["layers"][li]["self_attn"]["q_proj"]["w"].float().cpu()
+            out[f"q{li}_moved"] = float(((q - ref[f"q{li}"].float()).abs() > 1e-6)
+                                        .float().mean())
+        eval_ids = synthetic_eval_stream(cfg.vocab_size, eval_tokens, seed=43)
+        out["ppl"] = perplexity_from_token_stream(params, cfg, eval_ids, max_length=seq,
+                                                  stride=seq // 4)
+    return out
+
+
+def phase10_parallel(dev, counts: dict, k5: dict, p3=None, single=None,
+                     preset: str = "qwen3-8b", check_layers: int = 4, chunk: int = 8,
+                     n_chunks: int = 2, serve_args=None, n_samples: int = 32,
+                     seq: int = 2048, group_size: int = 128, eval_tokens: int = 8192) -> None:
+    """Phase 10 (see the module docstring); the keyword arguments cut sizes
+    for a rehearsal on the CPU.  ``p3``: phase 3's readings (run here when
+    phase 3 was not); ``single``: phase 7b's runs, printed beside 10c."""
+    import torch
+
+    from tgq_torch.parallel.launch import spawn
+
+    t_phase = time.time()
+    marks = {}
+
+    def mark(step):
+        marks[step] = round(time.time() - t_phase - sum(marks.values()), 1)
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        phase10a_window(dev, k5)
+    mark("a")
+    res = spawn(tp_decode_rank, 2, args=(preset, check_layers, (16, 8, 4), chunk, n_chunks,
+                                         group_size), device=dev.type, timeout_s=600)
+    for kv_bits, r0 in res[0].items():
+        r1 = res[1][kv_bits]
+        for r in (r0, r1):
+            for k, v in r["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        ref = "the model attending the stored rows" if kv_bits == 4 else "the unquantized model"
+        log(f"[phase10b] TP 2 decode kv{kv_bits}, {check_layers} layers, {n_chunks} chunks of "
+            f"{chunk} steps (window 0-{chunk - 1} rows): max|dlogit| / max|logit| "
+            f"{r0['worst']:.4f} against {ref}, tolerance 0.03; greedy agrees on "
+            f"{r0['agree']}/{r0['decided']} decided steps; ranks' tokens identical "
+            f"{r0['tokens'] == r1['tokens']}; launches rank 0 {r0['launches']}, rank 1 "
+            f"{r1['launches']} ({r0['seconds']:.1f} s)")
+        assert r0["worst"] <= 0.03 and r0["agree"] == r0["decided"], (kv_bits, r0)
+        assert r0["tokens"] == r1["tokens"], kv_bits
+        if dev.type == "cuda":
+            assert all(r["launches"]["dequant_matmul"] > 0 and r["launches"]["paged_attention"]
+                       > 0 for r in (r0, r1)), (r0["launches"], r1["launches"])
+    mark("b")
+    phase10c_serve(dev, counts, single, preset, serve_args)
+    mark("c")
+    if p3 is None:
+        p3 = phase3_main_path(dev, {}, preset, n_samples, seq, eval_tokens, group_size)
+    mark("3")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()   # four ranks' sweeps share the card
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "phase3.pt")
+        torch.save({"q0": p3["q0"], "q1": p3["q1"]}, ref_path)
+        res = spawn(dp_tp_quantize_rank, 4,
+                    args=(preset, n_samples, seq, group_size, ref_path, eval_tokens),
+                    device=dev.type, timeout_s=900)
+    r0 = res[0]
+    for r in res:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        assert r["ranks"] == r0["ranks"] and r["packed"] == 2 * 7, (r["ranks"], r0["ranks"])
+        if dev.type == "cuda":
+            assert r["launches"]["pchol_panel"] > 0 and r["launches"]["gptq_block"] > 0, r
+    ranks = "; ".join(f"{name.split('.', 1)[1]} {r0['ranks'][name]} (phase 3 {p3['ranks'][name]})"
+                      for name in r0["ranks"] if name.startswith("layer_0"))
+    ppl_rel = r0["ppl"] / p3["ppl"] - 1
+    log(f"[phase10d] DP 2 x TP 2 quantize, {preset} x2 layers, {n_samples} x {seq} tokens, 4 "
+        f"ranks on one card: layer-0 q/k/v Gram max|H-H64|/max|H64| {r0['gram_err']:.3e} "
+        f"(phase 3 {p3['gram_err']:.3e}, limit 2x); pchol ranks {ranks}; layer-0 q_proj "
+        f"moved {r0['q0_moved']:.4%} of weights by > 1e-6 (limit 2 %), layer 1's "
+        f"{r0['q1_moved']:.4%} (its inputs pass TP forwards; not held); PPL {r0['ppl']:.4f} vs phase "
+        f"3 {p3['ppl']:.4f} ({ppl_rel:+.3%}, limit 2 %); {r0['seconds'] / 2:.2f} s/layer "
+        f"(phase 3 {p3['s_per_layer']:.2f}); launches by rank "
+        f"{[r['launches'] for r in res]}; {card_line()}")
+    assert r0["gram_err"] <= 2 * p3["gram_err"] + 1e-12, (r0["gram_err"], p3["gram_err"])
+    assert r0["q0_moved"] < 0.02 and abs(ppl_rel) < 0.02, (r0["q0_moved"], ppl_rel)
+    mark("d")
+    log(f"[phase10] tensor and data parallelism: {time.time() - t_phase:.1f} s (by step "
+        f"{marks}); {card_line()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (all by default)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -2157,13 +2636,13 @@ def main() -> int:
           "replaces": "tgq/kernels/gptq_block.py:84", "library_ms": None}
     counts: dict[str, int] = {}
     k34_readings: dict = {}
-    prof7c = None
+    prof7c = p3 = serve7b = None
     if 1 in phases:
         phase1_pchol(dev, k1)
     if 2 in phases:
         phase2_gptq(dev, k2)
     if 3 in phases:
-        phase3_main_path(dev, counts)
+        p3 = phase3_main_path(dev, counts)
     if 4 in phases:
         phase4_cli(dev)
     if 5 in phases:
@@ -2172,11 +2651,16 @@ def main() -> int:
     if 6 in phases:
         phase6_attention(dev, k5)
     if 7 in phases:
-        prof7c = phase7_serving(dev, counts)[-1]
+        *serve7b, prof7c = phase7_serving(dev, counts)
     if 8 in phases:
         phase8_families(dev, counts)
     if 9 in phases:
-        phase9_slice7(dev, counts, k34_readings, prof7c)
+        # depth cuts that make room for phase 10 (PERF.md section 4): the
+        # soak at 256 requests, 9b's serve runs at 12 of 36 layers
+        phase9_slice7(dev, counts, k34_readings, prof7c, serve_layers=12,
+                      soak_args=("--n_requests", "256"))
+    if 10 in phases:
+        phase10_parallel(dev, counts, k5, p3, serve7b)
     kernels = [k1, k2, k3, k4, k5]
     for k in kernels:
         k["launches"] = counts.get(k["name"], 0)

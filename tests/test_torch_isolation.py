@@ -34,6 +34,8 @@ def test_no_jax_or_tgq_imports():
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) >= 58  # every module was imported
     assert "tgq_torch._native" in _walk_names()  # the allocator's loader is covered
+    assert {"tgq_torch.parallel.mesh", "tgq_torch.parallel.launch",
+            "tgq_torch.parallel.dryrun"} <= _walk_names()  # and the parallel package
 
 
 def _walk_names() -> set:

@@ -98,22 +98,25 @@ def stored_rows(pool, kvh):
 
 
 def emulate_k5(q, k_pool, v_pool, ks, vs, lengths, table, kc, vc, kvh, splits,
-               soft_cap=None):
+               soft_cap=None, w_live=0, stats=False):
     """K5's arithmetic in f32: splits of 32-token tiles, an online softmax a
     tile (one max and one sum), partials (m, l, acc) merged in split order,
-    the current row folded in last."""
+    the current row folded in last.  ``w_live``: the chunk window's rows,
+    which shrink the pools' range; ``stats``: return (acc, m, l) un-normalised."""
     slots, H, d = q.shape
     group = H // kvh
     page = k_pool.shape[1]
     K, V = stored_rows(k_pool, kvh), stored_rows(v_pool, kvh)
     cap = (lambda x: torch.tanh(x / soft_cap) * soft_cap) if soft_cap else (lambda x: x)
     out = torch.zeros((slots, H, d))
+    m_out = torch.full((slots, H, 1), K5.DEFAULT_MASK_VALUE)
+    l_out = torch.zeros((slots, H, 1))
     tile = K5._K5_TILE
     for b in range(slots):
         n = int(lengths[b])
         if n <= 0:
             continue
-        pool_len = n - 1 if kc is not None else n
+        pool_len = max(n - (1 if kc is not None else 0) - w_live, 0)
         ranges = K5._k5_ranges(pool_len, splits)
         n_merge = max(1, sum(e > s for s, e in ranges))
         for g in range(kvh):
@@ -150,8 +153,11 @@ def emulate_k5(q, k_pool, v_pool, ks, vs, lengths, table, kc, vc, kvh, splits,
                 alpha, p = torch.exp(M - m_next), torch.exp(qc - m_next)
                 L = L * alpha + p
                 A = A * alpha[:, None] + p[:, None] * torch.from_numpy(vc[b, g * d:(g + 1) * d])
-            out[b, g * group:(g + 1) * group] = A / L[:, None]
-    return out
+                M = m_next
+            hs = slice(g * group, (g + 1) * group)
+            out[b, hs] = A if stats else A / L[:, None]
+            m_out[b, hs, 0], l_out[b, hs, 0] = M, L
+    return (out, m_out, l_out) if stats else out
 
 
 CASES = [(16, 1, None), (16, 3, None), (16, 16, None), (8, 2, None), (8, 7, None),

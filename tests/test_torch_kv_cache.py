@@ -183,9 +183,17 @@ def test_int4_round_trip_and_layout(rng):
 
 
 def test_cache_rejects_tp_layout():
+    """The TP layout (int4 packed in segments) is taken and round-trips;
+    a kv-head count that does not divide the fused row is rejected."""
     k = torch.zeros((1, 2, 4, 32), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        tkv.PagedKVCache(k=k, v=k, num_kv_heads=2, pack_segments=2)
+    seg = tkv.PagedKVCache(k=k.clone(), v=k.clone(), ks=torch.zeros(1, 2, 2, 128),
+                           vs=torch.zeros(1, 2, 2, 128), num_kv_heads=2, pack_segments=2)
+    rows = torch.randn(1, 2, 32)
+    tkv.kv_write_token(seg, 0, torch.tensor([1]), torch.tensor([3]), rows, rows)
+    kg, _ = tkv.kv_gather(seg, 0, torch.tensor([[1]]), torch.float32)
+    codes, s = tkv._absmax_quantize4(rows)
+    np.testing.assert_array_equal(kg[0, 3].numpy(), (tkv.kv_unpack4(codes).reshape(
+        2, 32) * s[0, :, None]).numpy())
     with pytest.raises(ValueError):
         tkv.PagedKVCache(k=k, v=k, num_kv_heads=5)
     c = tkv.PagedKVCache(k=k, v=k, ks=torch.zeros(1), vs=torch.zeros(1), num_kv_heads=2)

@@ -275,8 +275,21 @@ def test_port_engine_matches_jax_engine_by_margin():
 
 
 def test_engine_rejects_mesh(packed):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(packed, CFG, ServeConfig(), mesh=object(), device="cpu")
+    """A mesh of one rank serves the tokens of no mesh; a mesh whose model
+    axis does not split the heads is rejected (the TP engine on more ranks:
+    tests/test_torch_serve_tp.py)."""
+    from tgq_torch.parallel import Mesh, make_mesh
+
+    prompt = [5, 17, 42, 100, 7]
+    outs = []
+    for mesh in (None, make_mesh()):
+        eng = Engine(packed, CFG, ServeConfig(max_new_tokens=5), mesh=mesh, device="cpu")
+        req = eng.submit(prompt)
+        eng.run()
+        outs.append(req.output)
+    assert outs[0] == outs[1] == greedy_reference(packed, prompt, 5)
+    with pytest.raises(ValueError, match="split"):
+        Engine(packed, CFG, ServeConfig(), mesh=Mesh(data=1, model=3), device="cpu")
 
 
 def test_mark_act_bits_skips_head_and_wide_codes():

@@ -1,6 +1,6 @@
 """``python -m tgq_torch.cli.serve`` on the CPU at tiny size: the metrics
 dict of ``tgq/cli/serve.py``'s ``run``, the checkpoint and preset load
-paths, the packed head, and the flags that are queued."""
+paths, the packed head, and the flags that were queued."""
 import json
 
 import numpy as np
@@ -73,10 +73,39 @@ def test_checkpoint_path(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mesh_model", "2"], ["--mesh_data", "2"], ["--distributed"],
                                   ["--kv_equalize"], ["--profile_dir", "x"]])
-def test_queued_flags_raise(flag, tmp_path):
-    """The queued flags raise; --profile_dir and --kv_equalize, once
-    queued, run: a trace of the measured run, equalizers calibrated for an
-    int8 cache (and none for bf16 KV, as in the JAX CLI)."""
+def test_queued_flags_raise(flag, tmp_path, capsys, monkeypatch):
+    """The once-queued flags run: a trace of the measured run, equalizers
+    calibrated for an int8 cache (and none for bf16 KV, as in the JAX CLI),
+    and the mesh flags — ``--mesh_model 2`` on two ranks the command starts
+    itself, ``--mesh_data 2`` as two replicas, ``--distributed`` as a world
+    of one from torchrun's environment variables."""
+    if flag[0] in ("--mesh_model", "--mesh_data"):
+        extra = ["--mesh_model", "1"] if flag[0] == "--mesh_data" else []
+        assert main(TINY + flag + extra) == 0
+        res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        par = res["config"]["parallel"]
+        assert res["total_tokens"] == 20
+        assert (par["data"], par["model"]) == ((1, 2) if not extra else (2, 1))
+        assert par["backend"] == "gloo"
+        assert (par["collectives"] > 0) == (par["model"] > 1)   # replicas talk only at start
+        return
+    if flag[0] == "--distributed":
+        import torch.distributed as dist
+
+        from tgq_torch.parallel.launch import free_port
+
+        for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                         MASTER_ADDR="localhost", MASTER_PORT=str(free_port())).items():
+            monkeypatch.setenv(k, v)
+        try:
+            res = run(build_parser().parse_args(TINY + flag + ["--mesh_model", "1"]))
+            assert dist.is_initialized() and dist.get_world_size() == 1
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        assert res["total_tokens"] == 20
+        assert res["config"]["parallel"]["model"] == 1
+        return
     if flag[0] == "--kv_equalize":
         for kv, want in (("8", "calibrated"), ("16", None)):
             res = run(build_parser().parse_args(TINY + flag + ["--kv_bits", kv]))
@@ -88,8 +117,32 @@ def test_queued_flags_raise(flag, tmp_path):
         trace = json.load(open(tmp_path / "x" / "trace.json"))
         assert trace["traceEvents"]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(build_parser().parse_args(TINY + flag))
+    raise AssertionError(f"no case for {flag}")
+
+
+def test_mesh_open_loop(capsys):
+    """``--mesh_model 2`` with Poisson arrivals: the first rank's clock
+    decides which requests each step admits and broadcasts the count, so
+    both ranks take the same steps (a rank admitting on its own clock
+    could prefill while the other decodes, and their collectives would
+    not match).  With ``--time_collectives`` the decode collectives are
+    counted and timed apart from the prefill's, the wait for the other
+    rank apart from the collective itself."""
+    assert main(TINY + ["--mesh_model", "2", "--arrival_rate", "100",
+                        "--time_collectives"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    c, par = res["config"], res["config"]["parallel"]
+    assert res["total_tokens"] == 20 and res["arrival_rate"] == 100
+    assert c["rank_decode_steps"][0] == c["rank_decode_steps"][1] == c["decode_steps"]
+    by = par["collectives_by_phase"]
+    assert by["other"]["calls"] > 0          # the admission broadcasts
+    assert by["prefill"]["calls"] > 0 and by["decode"]["calls"] > 0
+    assert par["collectives"] == sum(p["calls"] for p in by.values())
+    assert par["decode_collectives_per_step"] == round(
+        by["decode"]["calls"] / c["decode_steps"], 2)
+    assert par["decode_collective_ms_per_step"] > 0
+    assert par["decode_collective_wait_ms_per_step"] >= 0
+    assert by["decode"]["wait_ms"] is not None and by["prefill"]["ms"] > 0
 
 
 def test_hf_path_raises(tmp_path, monkeypatch):

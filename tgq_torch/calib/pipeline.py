@@ -1,5 +1,5 @@
 """Layer-sequential calibration + quantization (mirrors
-``tgq/calib/pipeline.py``, without the mesh path).
+``tgq/calib/pipeline.py``).
 
 - The pipeline calls the decoder-layer pieces (attn_input / attn_core /
   mlp_input / mlp_act, per model family) to get each quantization group's
@@ -15,9 +15,18 @@
 - The results log keeps the reference schema
   ({config, layer_stats:[{name, rank, time, rel_error}], metrics}).
 - ``spectral_consistency_check`` is the CLI's ``--mode test``.
+- With a ``mesh`` (``tgq_torch.parallel.make_mesh``, one process a rank)
+  the calibration batch is split on "data" and the layer forwards run
+  tensor-parallel on "model"; the inputs of o_proj and down_proj, split
+  by head and by MLP column there, are gathered before their Gram, and
+  every Gram is summed over "data" in the single process's order
+  (``tgq_torch.parallel.mesh.dp_sum``).  The factorization and the GPTQ
+  loop run replicated on every rank, which all write back the same
+  weights.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -49,6 +58,13 @@ from tgq_torch.models.causal_lm import (
 )
 from tgq_torch.models.config import ModelConfig
 from tgq_torch.models.convert import numpy_from_tensor, tensor_from_numpy
+from tgq_torch.parallel.mesh import (
+    all_gather_last,
+    dp_sum,
+    local_config,
+    serving_mesh_scope,
+    shard_params,
+)
 from tgq_torch.solver.factorize import (
     FactorResult,
     gptq_cholesky_factor,
@@ -191,15 +207,71 @@ def _rtn_quantize(w: torch.Tensor, spec: QuantSpec):
     return codes.to(torch.int32), (codes - z) * s, p
 
 
+class _Mesh:
+    """What one layer's quantization needs of a mesh: this rank's shards
+    of the layer and config, the gather of a TP-split activation, the
+    data-parallel Hessian sum, and the mesh scope for the forwards.  A
+    single process is the mesh of one."""
+
+    def __init__(self, mesh, cfg: ModelConfig):
+        self.mesh = mesh
+        self.tp = mesh is not None and mesh.model > 1
+        self.cfg = local_config(cfg, mesh)
+
+    def layer(self, lp: Params) -> Params:
+        return shard_params(lp, self.mesh) if self.tp else lp
+
+    def full(self, a: torch.Tensor) -> torch.Tensor:
+        return all_gather_last(a, self.mesh, "model") if self.tp else a
+
+    def accumulator(self, in_f: int, device):
+        """Data ranks after the first keep their batch Grams for
+        ``dp_sum``; the first, and a single process, add them in place."""
+        return HessianAccumulator.init(in_f, device=device, keep_parts=self.mesh is not None
+                                       and self.mesh.data_rank > 0)
+
+    def hessian(self, acc):
+        if self.mesh is None:
+            return acc.finalize()
+        # every data rank holds as many tokens
+        own = acc.h if acc.parts is None else acc.parts
+        return dp_sum(own, self.mesh) / max(acc.n_samples * self.mesh.data, 1)
+
+    def scope(self):
+        return serving_mesh_scope(self.mesh) if self.mesh is not None \
+            else contextlib.nullcontext()
+
+
+def _check_dp_parts(cfg: ModelConfig, batches: int, dev: torch.device) -> None:
+    """Data ranks after the first keep one f32 n x n Gram per calibration
+    batch until ``dp_sum`` (n the group's input width, down_proj's the
+    widest): refuse a sweep whose Grams would not fit in this rank's share
+    of the card's free memory, before the sweep starts."""
+    if dev.type != "cuda":
+        return
+    n = max(_group_in_features(cfg, gi) for gi in range(4))
+    need = batches * n * n * 4
+    free, _ = torch.cuda.mem_get_info(dev)
+    sharing = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", 1)) // torch.cuda.device_count())
+    if need > free // sharing:
+        raise ValueError(f"quantize_model: a data rank keeps {batches} Grams of {n} x {n} f32 "
+                         f"({need / 2**30:.1f} GiB) for the exact data-parallel sum, more than "
+                         f"its {free / sharing / 2**30:.1f} GiB share of the card's free memory; "
+                         "raise batch_size or lower the data degree")
+
+
 @torch.no_grad()
 def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
                    qcfg: QuantizeConfig, timers: Optional[PhaseTimers] = None,
-                   name_prefix: str = "", attn: Optional[list[torch.Tensor]] = None):
+                   name_prefix: str = "", attn: Optional[list[torch.Tensor]] = None,
+                   mesh=None):
     """Quantize one decoder layer's four sequential groups.
 
     ``attn``: group 1's inputs, one (batch, seq, q_size) tensor per
     calibration batch, used in place of the attention this layer computes
     (a test gives the JAX package's, to isolate the attention's numerics).
+    ``mesh``: ``inps`` are this rank's data share and ``lp`` the whole
+    layer (module docstring).
 
     Returns (lp, outs, module_stats, packed): outs are the quantized
     layer's outputs for every calibration batch (the next layer's
@@ -216,6 +288,13 @@ def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
     attn_l = x2_l = None
     module_stats: list[dict[str, Any]] = []
     packed: dict[str, PackedLinear] = {}
+    pm = _Mesh(mesh, cfg)
+    if pm.tp and attn is not None:
+        raise ValueError("quantize_layer: attn overrides run without a TP mesh")
+    if mesh is not None and staged and qcfg.mode == "svd":
+        raise NotImplementedError("the sketch (svd mode) under a mesh: its random "
+                                  "projections would differ per data rank")
+    cfg_l = pm.cfg
 
     for gi, group_names in enumerate(sequenced_groups(cfg)):
         eps = (get_adaptive_eps(group_names[0], qcfg.eps)
@@ -223,23 +302,28 @@ def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
         in_f = _group_in_features(cfg, gi)
 
         if staged and gi == 1:
-            with timers.phase("stage_fwd"):
-                attn_l = attn or [_stage_attn(lp, cfg, inps[j : j + bs], cos, sin,
+            with timers.phase("stage_fwd"), pm.scope():
+                lp_t = pm.layer(lp)
+                attn_l = attn or [_stage_attn(lp_t, cfg_l, inps[j : j + bs], cos, sin,
                                               attn_impl=qcfg.attn_impl) for j in idx]
         elif staged and gi == 2:
-            with timers.phase("stage_fwd"):
-                x2_l = [_stage_resid(lp, cfg, inps[j : j + bs], attn_l[jj])
+            with timers.phase("stage_fwd"), pm.scope():
+                lp_t = pm.layer(lp)
+                x2_l = [_stage_resid(lp_t, cfg_l, inps[j : j + bs], attn_l[jj])
                         for jj, j in enumerate(idx)]
                 attn_l = None
+        elif staged and gi == 3:
+            lp_t = pm.layer(lp)
 
         def group_act(jj: int, j: int):
             if gi == 0:
                 return attn_input(lp, cfg, inps[j : j + bs])
             if gi == 1:
-                return attn_l[jj]
+                return pm.full(attn_l[jj])
             if gi == 2:
                 return mlp_input(lp, cfg, x2_l[jj])
-            return _stage_act(lp, cfg, x2_l[jj])
+            with pm.scope():
+                return pm.full(_stage_act(lp_t, cfg_l, x2_l[jj]))
 
         stats = None
         if staged:
@@ -247,16 +331,16 @@ def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
                 acc = SketchAccumulator.init(in_f, rank=int(in_f * qcfg.sketch_ratio),
                                              seed=qcfg.seed, device=inps.device)
             else:
-                acc = HessianAccumulator.init(in_f, device=inps.device)
+                acc = pm.accumulator(in_f, inps.device)
             fused_t = (gi == 3 and cfg.family == "llama" and qcfg.mode != "svd"
-                       and "b" not in get_nested(lp, "mlp.gate_proj"))
+                       and "b" not in get_nested(lp, "mlp.gate_proj") and not pm.tp)
             with timers.phase("accumulate"):
                 for jj, j in enumerate(idx):
                     if fused_t:
                         acc.update_t(_stage_act_t(lp, cfg, x2_l[jj]))
                     else:
                         acc.update(group_act(jj, j))
-                h_or_y = acc.finalize()
+                h_or_y = acc.finalize() if qcfg.mode == "svd" else pm.hessian(acc)
             del acc
             t_f = time.time()
             with timers.phase("factorize"):
@@ -300,11 +384,12 @@ def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
                  "time": time.time() - t_solve, "rel_error": rel,
                  "rtn_rel_error": rtn_rel})
 
-    with timers.phase("reforward"):
+    with timers.phase("reforward"), pm.scope():
+        lp_t = pm.layer(lp)
         if x2_l is not None:
-            outs = [_stage_out(lp, cfg, x2) for x2 in x2_l]
+            outs = [_stage_out(lp_t, cfg_l, x2) for x2 in x2_l]
         else:  # rtn never staged
-            outs = [decoder_layer(lp, cfg, inps[j : j + bs], cos, sin,
+            outs = [decoder_layer(lp_t, cfg_l, inps[j : j + bs], cos, sin,
                                   attn_impl=qcfg.attn_impl) for j in idx]
     for m in module_stats:
         m["rel_error"] = float(m["rel_error"])
@@ -456,7 +541,7 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
                    qcfg: QuantizeConfig, device: str = "cuda",
                    resume_dir: Optional[str] = None,
                    stop_after_layer: Optional[int] = None,
-                   timers: Optional[PhaseTimers] = None,
+                   timers: Optional[PhaseTimers] = None, mesh=None,
                    ) -> tuple[Params, dict[str, PackedLinear], dict[str, Any]]:
     """Quantize every decoder layer in place (layer-sequential).
 
@@ -468,6 +553,13 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
     the same directory restores the finished prefix and re-forwards the
     calibration activations through it, so a killed sweep loses at most
     one layer.  ``stop_after_layer`` ends the sweep after that layer.
+
+    ``mesh`` (this rank's ``tgq_torch.parallel.Mesh``, every rank calling
+    with the same arguments): this rank calibrates on its "data" share of
+    ``input_ids`` (whole batches of ``batch_size``; the Hessians are then
+    the single-process ones when the share is a multiple of it) with TP
+    layer forwards on "model", and returns the same params, packed export
+    and log as every other rank; only rank 0 writes ``resume_dir``.
     """
     if qcfg.kernel_backend not in ("kernel", "plain"):
         raise ValueError(f"unknown kernel_backend {qcfg.kernel_backend!r}")
@@ -484,6 +576,19 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
     groups = sequenced_groups(cfg)
     cos, sin = rope_cache(cfg, seq_len, device=dev)
 
+    pm = _Mesh(mesh, cfg)
+    if mesh is not None and mesh.data > 1:
+        if n_samples % mesh.data:
+            raise ValueError(f"quantize_model: {n_samples} samples do not split into "
+                             f"data={mesh.data}")
+        # each data rank runs whole batches of the single-process sweep, so
+        # dp_sum adds the same batch Grams in the same order
+        share = n_samples // mesh.data
+        input_ids = input_ids[mesh.data_rank * share:(mesh.data_rank + 1) * share]
+        n_samples = share
+        _check_dp_parts(cfg, -(-share // bs), dev)
+    writer = mesh is None or mesh.rank == 0
+
     t_start = time.time()
     inps = _embed_batches(params, cfg, input_ids, bs, dev)
     logger.info("[calib] captured %d sequences of %d tokens", n_samples, seq_len)
@@ -497,10 +602,11 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
                         "calibration activations", start_layer - 1)
             refwd = decoder_layer if qcfg.mode == "rtn" else _layer_forward_staged
             for li in range(start_layer):
-                lp = tree_to(params["model"]["layers"][li], dev)
-                inps = torch.cat([refwd(lp, cfg, inps[j : j + bs], cos, sin,
-                                        attn_impl=qcfg.attn_impl)
-                                  for j in range(0, n_samples, bs)])
+                lp = pm.layer(tree_to(params["model"]["layers"][li], dev))
+                with pm.scope():
+                    inps = torch.cat([refwd(lp, pm.cfg, inps[j : j + bs], cos, sin,
+                                            attn_impl=qcfg.attn_impl)
+                                      for j in range(0, n_samples, bs)])
                 del lp
     for li in range(start_layer, n_layers):
         layer_t0 = time.time()
@@ -510,7 +616,8 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
         home = _tree_device(host_layer)
         lp = tree_to(host_layer, dev)
         lp, outs, module_stats, layer_packed = quantize_layer(
-            lp, cfg, inps, cos, sin, qcfg, timers=timers, name_prefix=f"layer_{li}.")
+            lp, cfg, inps, cos, sin, qcfg, timers=timers, name_prefix=f"layer_{li}.",
+            mesh=mesh)
         log["layer_stats"].extend(module_stats)
         for name, pl in layer_packed.items():
             packed[f"layers.{li}.{name}"] = pl
@@ -518,7 +625,7 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
         del outs
         params["model"]["layers"][li] = tree_to(lp, home)
         del lp
-        if resume_dir is not None:
+        if resume_dir is not None and writer:
             _save_resume_layer(resume_dir, li, params["model"]["layers"][li], packed, log)
         logger.info("[*] layer %d/%d done in %.2fs", li + 1, n_layers, time.time() - layer_t0)
         if stop_after_layer is not None and li >= stop_after_layer:

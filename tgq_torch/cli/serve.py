@@ -1,5 +1,5 @@
 """``python -m tgq_torch.cli.serve`` — serving entry point and throughput
-harness (mirrors ``tgq/cli/serve.py``, single device).
+harness (mirrors ``tgq/cli/serve.py``).
 
 Loads a packed checkpoint (``--checkpoint``) or makes a preset with random
 RTN-packed weights, drives the continuous-batching engine with synthetic
@@ -10,19 +10,26 @@ decode-only tokens/s, TTFT percentiles, decode and prefill wall time.
 for a quantized cache (a checkpoint's stored ones win); ``--page_alloc``
 picks the page allocator, and ``config.page_alloc`` says which ran.
 Runs on CUDA unless ``--device cpu``.
+
+Tensor parallelism: ``--mesh_model T`` (with ``--mesh_data D`` replicas)
+serves on D·T ranks, one process each.  Run alone, the command starts its
+own ranks on this host (``tgq_torch.parallel.launch.spawn``; gloo when
+they share a card, NCCL when each has one); under ``torchrun`` pass
+``--distributed`` and every rank joins the group torchrun describes.
+Rank 0 prints; a failure in any rank fails the command.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import os
+import sys
 import time
 
 import numpy as np
 import torch
-
-_QUEUED = "is queued in ROADMAP.md (queue 1)"
-
 
 def _rtn_pack_dense(params, cfg, spec) -> None:
     """RTN-pack every decoder linear of a dense tree in place."""
@@ -79,9 +86,12 @@ def _maybe_pack_head(params, args) -> bool:
     return True
 
 
-def _measured_run(eng, prompts, arrival_rate: float, rng, sync):
+def _measured_run(eng, prompts, arrival_rate: float, rng, sync, agree=lambda n: n):
     """The measured run: every prompt at once (closed loop), or Poisson
-    arrivals at ``arrival_rate`` req/s driving ``Engine.step``.  Returns
+    arrivals at ``arrival_rate`` req/s driving ``Engine.step``.  ``agree``
+    turns this rank's count of arrivals due by its clock into the count
+    every rank of a TP group admits (the first rank's): the ranks' clocks
+    differ, and their engines must take the same steps.  Returns
     (requests, wall seconds)."""
     if arrival_rate > 0:
         gaps = rng.exponential(1.0 / arrival_rate, size=len(prompts))
@@ -89,14 +99,14 @@ def _measured_run(eng, prompts, arrival_rate: float, rng, sync):
         arrivals = t0 + np.cumsum(gaps)
         reqs, i = [], 0
         while i < len(prompts) or not eng.idle:
-            now = time.time()
-            while i < len(prompts) and arrivals[i] <= now:
+            if eng.idle:  # nothing to step: wait for the next arrival
+                time.sleep(max(0.0, arrivals[i] - time.time()))
+            due = agree(int(np.searchsorted(arrivals, time.time(), side="right")))
+            while i < due:
                 reqs.append(eng.submit(prompts[i]))
                 i += 1
-            if eng.idle and i < len(prompts):
-                time.sleep(max(0.0, arrivals[i] - time.time()))
-                continue
-            eng.step()
+            if not eng.idle:
+                eng.step()
     else:
         reqs = [eng.submit(p) for p in prompts]
         t0 = time.time()
@@ -143,23 +153,40 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile_dir", default=None,
                     help="torch.profiler trace of the measured run, written to "
                          "<dir>/trace.json")
-    ap.add_argument("--mesh_model", type=int, default=0, help="TP degree (queued)")
-    ap.add_argument("--mesh_data", type=int, default=1, help="data-parallel degree (queued)")
-    ap.add_argument("--distributed", action="store_true", help="multi-host (queued)")
+    ap.add_argument("--mesh_model", type=int, default=0,
+                    help="TP degree; 0 = single device.  With --distributed the mesh spans "
+                         "every rank torchrun started (model axis inside a host)")
+    ap.add_argument("--mesh_data", type=int, default=1,
+                    help="data-parallel degree of the serving mesh (replicas)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the process group of torchrun's environment variables")
+    ap.add_argument("--time_collectives", action="store_true",
+                    help="under a mesh, time every collective of the measured run by "
+                         "phase: the wait for the group's last rank (a barrier) apart "
+                         "from the collective itself, the device synchronised around both")
     return ap
 
 
 def run(args) -> dict:
     """Load or make the model, drive the engine (one warm-up wave, then
     the measured run) and return the metrics dict."""
+    from tgq_torch.parallel import mesh as pmesh
     from tgq_torch.serve import Engine, ServeConfig
     from tgq_torch.utils.precision import resolve_device
 
-    for flag, on in (("--mesh_model", args.mesh_model), ("--mesh_data", args.mesh_data != 1),
-                     ("--distributed", args.distributed)):
-        if on:
-            raise NotImplementedError(f"{flag} {_QUEUED}")
     device = resolve_device(args.device)
+    if args.distributed:
+        from tgq_torch.parallel.launch import init_distributed
+
+        device = init_distributed(device.type)
+    mesh = None
+    if args.mesh_model:
+        from tgq_torch.parallel.launch import global_mesh
+
+        mesh = global_mesh(model_per_host=args.mesh_model)
+        if mesh.data != args.mesh_data:
+            raise ValueError(f"--mesh_data {args.mesh_data} x --mesh_model {args.mesh_model} "
+                             f"!= {mesh.data * mesh.model} ranks")
     params, cfg, ckpt_eq = load_or_make_model(args, device)
     k_eq = v_eq = None
     kv_eq_s = None
@@ -184,7 +211,7 @@ def run(args) -> dict:
         kv_bits=args.kv_bits, kv_k_eq=k_eq, kv_v_eq=v_eq,
         prefill_chunk_tokens=args.prefill_chunk_tokens, a_bits=args.a_bits,
         page_alloc=args.page_alloc)
-    eng = Engine(params, cfg, scfg, device=device)
+    eng = Engine(params, cfg, scfg, mesh=mesh, device=device)
     del params
 
     rng = np.random.default_rng(args.seed)
@@ -205,8 +232,37 @@ def run(args) -> dict:
 
     from tgq_torch.utils.profiling import device_trace
 
-    with device_trace(args.profile_dir, cuda=device.type == "cuda"):
-        reqs, wall = _measured_run(eng, prompts, args.arrival_rate, rng, sync)
+    from tgq_torch.kernels import dequant_matmul as KD
+    from tgq_torch.kernels import paged_attention as K5
+
+    stats0 = pmesh.collective_totals()
+    launches0 = (KD.launches, KD.launches_a8, K5.launches)
+    agree = (lambda n: n) if mesh is None else (lambda n: pmesh.broadcast_int(n, mesh))
+    timing = pmesh.time_collectives() if mesh is not None and args.time_collectives \
+        else contextlib.nullcontext()
+    with device_trace(args.profile_dir, cuda=device.type == "cuda"), timing:
+        reqs, wall = _measured_run(eng, prompts, args.arrival_rate, rng, sync, agree)
+    launches = {name: now - then for name, now, then in zip(
+        ("dequant_matmul", "a8_matmul", "paged_attention"),
+        (KD.launches, KD.launches_a8, K5.launches), launches0)}
+    parallel = None
+    if mesh is not None:
+        phases = {}
+        for ph, st in pmesh.collective_stats.items():
+            st0 = stats0.get(ph, {"calls": 0, "seconds": 0.0, "wait_seconds": 0.0})
+            calls = st["calls"] - st0["calls"]
+            if calls:
+                ms = {k: round((st[k] - st0[k]) * 1e3, 3) if args.time_collectives else None
+                      for k in ("seconds", "wait_seconds")}
+                phases[ph] = {"calls": calls, "ms": ms["seconds"], "wait_ms": ms["wait_seconds"]}
+        dec = phases.get("decode", {"calls": 0, "ms": None, "wait_ms": None})
+        per_step = lambda v: None if v is None else round(v / max(eng.steps, 1), 4)  # noqa: E731
+        parallel = {"data": mesh.data, "model": mesh.model, "backend": mesh.backend,
+                    "collectives": sum(p["calls"] for p in phases.values()),
+                    "collectives_by_phase": phases,
+                    "decode_collectives_per_step": round(dec["calls"] / max(eng.steps, 1), 2),
+                    "decode_collective_ms_per_step": per_step(dec["ms"]),
+                    "decode_collective_wait_ms_per_step": per_step(dec["wait_ms"])}
 
     total_tokens = sum(len(r.output) for r in reqs)
     ttft = [r.first_token_t - r.submit_t for r in reqs]
@@ -235,14 +291,38 @@ def run(args) -> dict:
             "kv_equalizers": ("checkpoint" if ckpt_eq is not None and k_eq is not None
                               else "calibrated" if k_eq is not None else None),
             "kv_equalize_s": kv_eq_s,
+            "parallel": parallel,
+            "decode_steps": eng.steps,
+            "launches": launches,  # kernel launches of the measured run (CUDA only)
         },
     }
 
 
+def _rank_main(argv) -> dict:
+    """One spawned rank of ``main``: the metrics of ``run`` (the process
+    group is already joined)."""
+    logging.basicConfig(level=logging.INFO if int(os.environ.get("RANK", 0)) == 0
+                        else logging.WARNING)
+    return run(build_parser().parse_args(argv))
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    print(json.dumps(run(args)))
+    world = args.mesh_data * args.mesh_model  # no mesh without --mesh_model, as in tgq
+    if args.distributed or world <= 1:
+        res = run(args)
+        if int(os.environ.get("RANK", 0)) == 0:
+            print(json.dumps(res))
+        return 0
+    from tgq_torch.parallel.launch import spawn
+
+    res = spawn(_rank_main, world, args=(argv,), device=args.device)
+    out = res[0]
+    out["config"]["rank_launches"] = [r["config"]["launches"] for r in res]
+    out["config"]["rank_decode_steps"] = [r["config"]["decode_steps"] for r in res]
+    print(json.dumps(out))
     return 0
 
 

@@ -111,6 +111,9 @@ class PackedLinear:
     out_features: int
     bias: torch.Tensor | None = None
     act_bits: int = 16
+    # tensor-parallel role of a rank-local shard ("col" | "row"), set by
+    # tgq_torch.parallel.mark_tp_kinds; None outside a TP mesh
+    tp_kind: str | None = None
 
     @classmethod
     def from_codes(
@@ -168,6 +171,7 @@ def concat_out(parts: list[PackedLinear]) -> PackedLinear:
         out_features=sum(p.out_features for p in parts),
         bias=bias,
         act_bits=p0.act_bits,
+        tp_kind=p0.tp_kind if all(p.tp_kind == p0.tp_kind for p in parts) else None,
     )
 
 

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "tgq_gptq_block": ([_P] * 6 + [_I] * 4 + [ctypes.c_float, ctypes.c_float, _I, _P], _I),
     "tgq_dequant_matmul": ([_P, _I, _L] + [_P] * 4 + [_I, _P] + [_I] * 11 + [_P], _I),
     "tgq_a8_matmul": ([_P] * 6 + [_I] * 10 + [_P], _I),
-    "tgq_paged_attention": ([_P] * 13 + [_I] * 10 + [ctypes.c_float, _I, _P], _I),
+    "tgq_paged_attention": ([_P] * 15 + [_I] * 11 + [ctypes.c_float, _I, _P], _I),
 }
 
 

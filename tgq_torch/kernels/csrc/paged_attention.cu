@@ -15,6 +15,15 @@
 // in last, unquantized; len == 0 gives zeros.  An optional soft cap
 // tanh(x/c)·c applies to pool and current logits alike.
 //
+// Chunk-window mode (tensor-parallel decode): w_live > 0 shrinks the pools'
+// coverage to [0, len - 1 - w_live) (the chunk's last w_live rows live in a
+// raw window the caller attends), and with m_out/l_out the kernel returns
+// the flash partials instead of the normalised output: out gets the
+// un-normalised accumulator, m_out/l_out (slots, H) the running max and sum
+// after the current row.  An idle slot gives out = 0, m = -0.7·FLT_MAX (finite,
+// so a merge never forms -inf - -inf) and l = 0.  Only the last block of the
+// in-launch merge writes differently; nothing else changes.
+//
 // write_current: split 0 of a (slot, kv head) also stores the current row at
 // position len-1 of the slot's pages, quantized exactly as
 // tgq_torch/serve/kv_cache.py's _absmax_quantize[4] (absmax · (1/127) or
@@ -214,9 +223,11 @@ struct Args {
   const float* v_cur;
   const int* live;
   float* out;
+  float* m_out;  // return_stats: (slots, H) f32, else null
+  float* l_out;
   float* ws;
   int* counters;
-  int H, kvh, page, mpps, spad, S, write_current;
+  int H, kvh, page, mpps, spad, S, write_current, w_live;
   float soft_cap;
 };
 
@@ -235,14 +246,20 @@ __global__ void __launch_bounds__(NT) paged_attention_kernel(const Args a) {
   const int len = a.lengths[b];
   const bool has_cur = a.k_cur != nullptr;
   float* out = a.out + ((long)b * a.H + g * group) * D;
+  const bool stats = a.m_out != nullptr;
   if (len <= 0) {  // an idle slot: zeros (split 0), nothing written
-    if (s == 0)
+    if (s == 0) {
       for (int i = tid; i < group * D; i += NT) out[i] = 0.f;
+      if (stats && tid < group) {
+        a.m_out[(long)b * a.H + g * group + tid] = MASK;
+        a.l_out[(long)b * a.H + g * group + tid] = 0.f;
+      }
+    }
     return;
   }
-  const int pool_len = has_cur ? len - 1 : len;
+  const int pool_len = max(len - (has_cur ? 1 : 0) - a.w_live, 0);
   const int chunk = split_chunk(pool_len, a.S);
-  const int n_merge = max((pool_len + chunk - 1) / chunk, 1);  // splits with tokens (>= 1)
+  const int n_merge = pool_len > 0 ? (pool_len + chunk - 1) / chunk : 1;  // splits with tokens
   if (s >= n_merge) return;
   const int t_begin = s * chunk, t_end = min(t_begin + chunk, pool_len);
   const int* pages = a.page_indices + (long)b * a.mpps;
@@ -425,6 +442,15 @@ __global__ void __launch_bounds__(NT) paged_attention_kernel(const Args a) {
       L = L * alpha + p;
       A.x = A.x * alpha + p * vcur.x;
       A.y = A.y * alpha + p * vcur.y;
+      M = m_next;
+    }
+    if (stats) {  // the partials: un-normalised, with their max and sum
+      *reinterpret_cast<float2*>(out + h * D + f0) = A;
+      if (f0 == 0) {
+        a.m_out[(long)b * a.H + g * group + h] = M;
+        a.l_out[(long)b * a.H + g * group + h] = L;
+      }
+      return;
     }
     *reinterpret_cast<float2*>(out + h * D + f0) = make_float2(A.x / L, A.y / L);
   };
@@ -509,24 +535,29 @@ extern "C" {
 // 16-byte aligned; k_cur/v_cur (slots, F) f32 or null; live (slots,) int32
 // or null; soft_cap 0 = none.  splits: S from the host's planner; with
 // S > 1, ws holds slots·kvh·S·group·(d+2) f32 and counters slots·kvh int32
-// that are 0 before the launch (the kernel leaves them 0).
+// that are 0 before the launch (the kernel leaves them 0).  w_live >= 0: the
+// chunk window's rows the pools do not cover; m_out/l_out (slots, H) f32,
+// both or neither: return the partials (out un-normalised).
 int tgq_paged_attention(const float* q, void* k_pool, void* v_pool, float* k_scales,
                         float* v_scales, const int* lengths, const int* page_indices,
                         const float* k_cur, const float* v_cur, const int* live, float* out,
-                        float* ws, int* counters, int slots, int H, int kvh, int d, int page,
-                        int mpps, int spad, int kv_bits, int splits, int write_current,
-                        float soft_cap, int device, void* stream) {
+                        float* m_out, float* l_out, float* ws, int* counters, int slots,
+                        int H, int kvh, int d, int page, int mpps, int spad, int kv_bits,
+                        int splits, int write_current, int w_live, float soft_cap, int device,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (kvh <= 0 || H % kvh != 0 || H / kvh > GMAX || page <= 0 || mpps <= 0 || splits < 1 ||
       (splits > 1 && (ws == nullptr || counters == nullptr)) ||
-      (kv_bits == 4 && kvh % 2 != 0) || (kv_bits != 16 && spad < page))
+      (kv_bits == 4 && kvh % 2 != 0) || (kv_bits != 16 && spad < page) || w_live < 0 ||
+      ((m_out == nullptr) != (l_out == nullptr)) || (write_current && w_live > 0))
     return (int)cudaErrorInvalidValue;
   if (slots == 0) return 0;
   if (slots > 65535 || kvh > 65535) return (int)cudaErrorInvalidValue;
-  const Args a{q,        k_pool, v_pool, k_scales, v_scales, lengths, page_indices,
-               k_cur,    v_cur,  live,   out,      ws,       counters, H,
-               kvh,      page,   mpps,   spad,     splits,   write_current, soft_cap};
+  const Args a{q,        k_pool,   v_pool, k_scales, v_scales,      lengths, page_indices,
+               k_cur,    v_cur,    live,   out,      m_out,         l_out,   ws,
+               counters, H,        kvh,    page,     mpps,          spad,    splits,
+               write_current, w_live, soft_cap};
   cudaStream_t s = (cudaStream_t)stream;
   switch (kv_bits) {
     case 16: return by_dim<16>(d, a, slots, device, s);

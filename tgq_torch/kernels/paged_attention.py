@@ -11,9 +11,14 @@ index: in torch a layer's slice is a free view.  CUDA tensors launch
 :func:`_k5_ranges` gives each split's tokens, as the kernel derives them
 on the device from the slot's length.
 
-Not ported: ``alias_pools`` (XLA buffer ownership; torch writes in
-place) and the TP chunk-window mode (``w_live``, ``return_stats``;
-ROADMAP.md queue 1).
+The chunk-window mode of tensor-parallel decode (``w_live``,
+``return_stats``) shrinks the pools' coverage to ``[0, len-1-w_live)``
+and returns the flash partials ``(o_unnormalised, m, l)`` for the caller
+to merge with its raw window (``tgq_torch.serve.decode._window_partial``).
+``w_live`` is a host ``int``: the decode loop's step index is known on the
+host, so it goes to the kernel by value, with no device scalar to copy or
+read.  Not ported: ``alias_pools`` (XLA buffer ownership; torch writes in
+place).
 """
 from __future__ import annotations
 
@@ -70,6 +75,8 @@ def _k5_ranges(pool_len: int, splits: int, tile: int = _K5_TILE) -> list[tuple[i
     return [(min(s * chunk, pool_len), min((s + 1) * chunk, pool_len)) for s in range(splits)]
 
 
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
 _counters: dict = {}  # per device: the int32 merge counters, zero between launches
 
 
@@ -84,8 +91,8 @@ def _merge_counters(device: torch.device, n: int) -> torch.Tensor:
     return c
 
 
-def _pool_len(lengths: torch.Tensor, has_current: bool) -> torch.Tensor:
-    return torch.clamp(lengths - 1, min=0) if has_current else lengths
+def _pool_len(lengths: torch.Tensor, has_current: bool, w_live: int = 0) -> torch.Tensor:
+    return torch.clamp(lengths - (1 if has_current else 0) - w_live, min=0)
 
 
 def _write_current(k_pool, v_pool, k_scales, v_scales, lengths, page_indices,
@@ -118,10 +125,13 @@ def _write_current(k_pool, v_pool, k_scales, v_scales, lengths, page_indices,
 def paged_decode_attention_plain(q, k_pool, v_pool, k_scales, v_scales, lengths,
                                  page_indices, k_current=None, v_current=None, live=None,
                                  *, num_kv_heads: int, attn_logits_soft_cap=None,
-                                 write_current: bool = False) -> torch.Tensor:
+                                 write_current: bool = False, w_live=None,
+                                 return_stats: bool = False):
     """Plain version of :func:`paged_decode_attention` (same contract),
     in f32 from the stored values: the pool tokens [0, pool_len) and the
-    current row (unquantized) as one masked softmax."""
+    current row (unquantized) as one masked softmax (or, with
+    ``return_stats``, its un-normalised sum with the max and the sum of
+    the exponentials)."""
     from tgq_torch.serve.kv_cache import gather_pools
 
     slots, H, d = q.shape
@@ -139,11 +149,17 @@ def paged_decode_attention_plain(q, k_pool, v_pool, k_scales, v_scales, lengths,
         c = attn_logits_soft_cap
         logits = torch.tanh(logits / c) * c
     t_ids = torch.arange(T, device=q.device)[None, :]
-    valid = t_ids < _pool_len(lengths, has_current)[:, None].to(t_ids.dtype)
+    valid = t_ids < _pool_len(lengths, has_current, w_live or 0)[:, None].to(t_ids.dtype)
     if has_current:
         valid[:, -1] = True
-    valid = valid & (lengths > 0)[:, None]
-    logits = logits.masked_fill(~valid[:, None, None, :], -math.inf)
+    valid = (valid & (lengths > 0)[:, None])[:, None, None, :]
+    if return_stats:
+        logits = logits.masked_fill(~valid, DEFAULT_MASK_VALUE)
+        m = logits.amax(dim=-1, keepdim=True)                   # MASK where nothing is valid
+        p = torch.exp(logits - m).masked_fill(~valid, 0.0)
+        o = torch.einsum("skgt,stkd->skgd", p, vg).reshape(slots, H, d)
+        return o, m.reshape(slots, H, 1), p.sum(dim=-1).reshape(slots, H, 1)
+    logits = logits.masked_fill(~valid, -math.inf)
     probs = torch.softmax(logits, dim=-1).nan_to_num(0.0)         # len == 0: all masked
     out = torch.einsum("skgt,stkd->skgd", probs, vg).reshape(slots, H, d)
     if write_current:
@@ -153,7 +169,7 @@ def paged_decode_attention_plain(q, k_pool, v_pool, k_scales, v_scales, lengths,
 
 
 def _check(q, k_pool, v_pool, k_scales, v_scales, lengths, page_indices, k_current,
-           v_current, live, num_kv_heads, write_current):
+           v_current, live, num_kv_heads, write_current, w_live):
     slots, H, d = q.shape
     if q.dtype != torch.float32:
         raise TypeError("paged_decode_attention: q must be f32")
@@ -172,6 +188,9 @@ def _check(q, k_pool, v_pool, k_scales, v_scales, lengths, page_indices, k_curre
         raise ValueError("paged_decode_attention: k_current and v_current together")
     if write_current and k_current is None:
         raise ValueError("paged_decode_attention: write_current needs the current rows")
+    if w_live is not None and (not isinstance(w_live, int) or w_live < 0 or write_current):
+        raise ValueError("paged_decode_attention: w_live is a host int >= 0, without "
+                         "write_current")
     ts = [q, k_pool, v_pool, lengths, page_indices] + [
         t for t in (k_scales, v_scales, k_current, v_current, live) if t is not None]
     if len({t.device for t in ts}) != 1:
@@ -180,7 +199,8 @@ def _check(q, k_pool, v_pool, k_scales, v_scales, lengths, page_indices, k_curre
 
 def paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales, lengths, page_indices,
                            k_current=None, v_current=None, live=None, *, num_kv_heads: int,
-                           attn_logits_soft_cap=None, write_current: bool = False):
+                           attn_logits_soft_cap=None, write_current: bool = False,
+                           w_live=None, return_stats: bool = False):
     """Decode attention for one layer of the paged pools.
 
     q: (slots, H, d) f32, pre-scaled by 1/sqrt(d).  k_pool/v_pool: the
@@ -192,12 +212,19 @@ def paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales, lengths, page_
     folded in unquantized.  ``write_current`` also stores the current row
     (quantized like the cache's writes) at position len-1, in place, for
     slots with len > 0 and ``live`` > 0.  Returns (slots, H, d) f32.
+
+    Chunk-window mode: ``w_live`` (a host int) rows before the current one
+    are not read from the pools, which then cover [0, len-1-w_live) (the
+    caller attends them from its window).  ``return_stats`` returns
+    ``(o, m, l)`` instead: o (slots, H, d) the un-normalised sum, m and l
+    (slots, H, 1) f32 the max and the sum of the exponentials; an idle
+    slot gives (0, DEFAULT_MASK_VALUE, 0).
     """
     global launches
     _check(q, k_pool, v_pool, k_scales, v_scales, lengths, page_indices, k_current,
-           v_current, live, num_kv_heads, write_current)
+           v_current, live, num_kv_heads, write_current, w_live)
     kw = dict(num_kv_heads=num_kv_heads, attn_logits_soft_cap=attn_logits_soft_cap,
-              write_current=write_current)
+              write_current=write_current, w_live=w_live, return_stats=return_stats)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, k_scales, v_scales, lengths,
                                             page_indices, k_current, v_current, live, **kw)
@@ -228,6 +255,10 @@ def paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales, lengths, page_
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError("paged_decode_attention: q and the pools must be 16-byte aligned")
     out = torch.empty((slots, H, d), dtype=torch.float32, device=q.device)
+    m = l = None
+    if return_stats:
+        m = torch.empty((slots, H, 1), dtype=torch.float32, device=q.device)
+        l = torch.empty((slots, H, 1), dtype=torch.float32, device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     spad = k_scales.shape[-1] if k_scales is not None else 0
     mpps = page_indices.shape[1]
@@ -241,9 +272,9 @@ def paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales, lengths, page_
     err = lib.tgq_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scales), ptr(v_scales),
         lengths.data_ptr(), page_indices.data_ptr(), ptr(kc), ptr(vc), ptr(lv),
-        out.data_ptr(), ptr(ws), ptr(counters), slots, H, num_kv_heads, d, page, mpps, spad,
-        kv_bits, plan.splits, int(write_current), float(attn_logits_soft_cap or 0.0), dev,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), ptr(m), ptr(l), ptr(ws), ptr(counters), slots, H, num_kv_heads, d,
+        page, mpps, spad, kv_bits, plan.splits, int(write_current), int(w_live or 0),
+        float(attn_logits_soft_cap or 0.0), dev, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention launch")
     launches += 1
-    return out
+    return (out, m, l) if return_stats else out

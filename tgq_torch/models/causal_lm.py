@@ -7,6 +7,14 @@ Parameters are a nested dict of tensors with the JAX tree's key paths
 checkpoint names and ``tgq_torch.models.convert`` map one to one.  Every
 linear is ``{"w": (out, in)[, "b": (out,)]}``.
 
+Under a tensor-parallel mesh (``tgq_torch.parallel.serving_mesh_scope``
+with a model axis wider than one) every function here runs on one rank's
+shards (``tgq_torch.parallel.shard_params``) with that rank's config
+(``tgq_torch.parallel.local_config``): the row-parallel linears (o_proj,
+down_proj) all-reduce after the matmul, the vocab-split embedding is a
+masked lookup and an all-reduce, and the vocab-split head's logits are
+gathered.
+
 Numerics follow the JAX package: bf16 weights and activations, f32 for
 RMSNorm, rope and the naive attention's softmax.  Attention on CUDA is
 ``torch.nn.functional.scaled_dot_product_attention`` (the JAX package
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 from tgq_torch.core.packing import PackedLinear
 from tgq_torch.kernels.dequant_matmul import glu_act, quantized_matmul
 from tgq_torch.models.config import ModelConfig
+from tgq_torch.parallel.mesh import all_gather_last, all_reduce, quantized_matmul_tp, tp_mesh
 from tgq_torch.utils.precision import resolve_device
 
 Params = dict
@@ -45,19 +54,29 @@ def _family_fn(cfg: ModelConfig, name: str):
 # ----------------------------------------------------------------- linears
 
 
-def apply_linear(p, x: torch.Tensor, glu: bool = False) -> torch.Tensor:
+def apply_linear(p, x: torch.Tensor, glu: bool = False, row: bool = False) -> torch.Tensor:
     """x @ Wᵀ (+ b) on a dense ``{"w", "b"}`` linear or a
     :class:`PackedLinear` (the packed-weight kernels K3/K4,
     ``tgq_torch.kernels.dequant_matmul``).
 
     ``glu``: x's last dim is 2·in_features holding [gate | up], and the
-    matmul input is silu(gate)·up."""
+    matmul input is silu(gate)·up.  ``row``: the linear is row-parallel
+    (o_proj, down_proj); under a TP mesh its partial sums are all-reduced
+    over "model" in the output's dtype before the bias."""
+    mesh = tp_mesh()
     if isinstance(p, PackedLinear):
-        return quantized_matmul(x, p, glu=glu)
+        if mesh is None:
+            return quantized_matmul(x, p, glu=glu)
+        if (p.tp_kind == "row") != row:
+            raise ValueError(f"apply_linear: a TP shard marked {p.tp_kind!r} used as "
+                             f"{'row' if row else 'column'}-parallel (mark_tp_kinds)")
+        return quantized_matmul_tp(x, p, mesh, glu=glu)
     if glu:
         n = p["w"].shape[1]
         x = glu_act(x[..., :n], x[..., n:])
     y = x @ p["w"].T.to(x.dtype)
+    if row and mesh is not None:
+        y = all_reduce(y, mesh, "model")
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -188,13 +207,13 @@ def mlp_act(lp: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def attn_out_proj(lp: Params, cfg: ModelConfig, attn: torch.Tensor) -> torch.Tensor:
     if fn := _family_fn(cfg, "attn_out"):
         return fn(lp, cfg, attn)
-    return apply_linear(lp["self_attn"]["o_proj"], attn)
+    return apply_linear(lp["self_attn"]["o_proj"], attn, row=True)
 
 
 def mlp_out_proj(lp: Params, cfg: ModelConfig, act: torch.Tensor) -> torch.Tensor:
     if fn := _family_fn(cfg, "mlp_out"):
         return fn(lp, cfg, act)
-    return apply_linear(lp["mlp"]["down_proj"], act)
+    return apply_linear(lp["mlp"]["down_proj"], act, row=True)
 
 
 def decoder_layer(lp: Params, cfg: ModelConfig, x: torch.Tensor, cos, sin,
@@ -216,7 +235,15 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, dtype=torch.bfloat16,
     need ``cfg``)."""
     if cfg is not None and (fn := _family_fn(cfg, "embed")):
         return fn(params, input_ids, dtype)
-    return params["model"]["embed_tokens"]["weight"][input_ids].to(dtype)
+    w = params["model"]["embed_tokens"]["weight"]
+    mesh = tp_mesh()
+    if mesh is None:
+        return w[input_ids].to(dtype)
+    # vocab-split: this rank's rows, zeros for the others' tokens, summed
+    local = input_ids - mesh.model_rank * w.shape[0]
+    mine = (local >= 0) & (local < w.shape[0])
+    e = w[local.clamp(0, w.shape[0] - 1)] * mine[..., None].to(w.dtype)
+    return all_reduce(e, mesh, "model").to(dtype)
 
 
 def apply_final_norm(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -226,16 +253,19 @@ def apply_final_norm(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch
 
 
 def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    mesh = tp_mesh()
+    gather = (lambda y: y) if mesh is None else (  # noqa: E731
+        lambda y: all_gather_last(y, mesh, "model"))
     if cfg.tie_word_embeddings:
         w = params["model"]["embed_tokens"]["weight"]
     elif isinstance(params["lm_head"], PackedLinear):
         # a head packed with lane padding (core.packing.pad_out) yields
         # ~0 pad logits that must not reach sampling
         y = quantized_matmul(x, params["lm_head"], out_dtype=torch.float32)
-        return y[..., : cfg.vocab_size]
+        return gather(y)[..., : cfg.vocab_size]
     else:
         w = params["lm_head"]["w"]
-    return x.float() @ w.T.float()
+    return gather(x.float() @ w.T.float())
 
 
 @torch.no_grad()

@@ -1,5 +1,5 @@
 """Prefill and decode steps over the paged KV cache (mirrors
-``tgq/serve/decode.py``, single device).
+``tgq/serve/decode.py``).
 
 Decode runs every slot every step (inactive slots compute garbage that
 the host drops; their KV writes are gated off by ``live``), one layer
@@ -17,6 +17,16 @@ is Gumbel-max on noise drawn by ``_uniform`` from a ``torch.Generator``:
 the noise is not JAX's threefry stream, but given the same noise the two
 samplers pick the same tokens.  Prefill attention is ``causal_attention``
 (SDPA on CUDA, the naive f32 softmax on the CPU) over the prompt itself.
+
+Under a tensor-parallel mesh each rank runs these functions on its own
+shards and kv heads (``tgq_torch.parallel``; each rank holds ``kvh/tp``
+whole GQA groups, so attention needs no collective), and a decode chunk
+of more than one step runs in chunk-window mode as in the JAX package:
+the pools stay untouched during the chunk, each step's raw K/V rows go
+into a bf16 window (``kv_cache.window_init``), K5 covers the pools with
+``w_live`` and returns flash partials, ``_window_partial`` attends the
+window with torch ops, ``_merge_partials`` joins the two, and one
+``window_flush`` per chunk quantizes the rows into the pools.
 """
 from __future__ import annotations
 
@@ -35,7 +45,13 @@ from tgq_torch.models.causal_lm import (
     rope_cache,
 )
 from tgq_torch.models.config import ModelConfig
-from tgq_torch.serve.kv_cache import PagedKVCache, kv_write_pages
+from tgq_torch.serve.kv_cache import (
+    PagedKVCache,
+    kv_write_pages,
+    window_flush,
+    window_init,
+    window_write_step,
+)
 
 
 def fuse_packed_projections(params):
@@ -95,13 +111,59 @@ def _mlp(lp, x, h2):
         gate, up = apply_linear(mlp["gate_up_proj"], h2).chunk(2, dim=-1)
     else:
         gate, up = apply_linear(mlp["gate_proj"], h2), apply_linear(mlp["up_proj"], h2)
-    return x + apply_linear(mlp["down_proj"], glu_act(gate, up))
+    return x + apply_linear(mlp["down_proj"], glu_act(gate, up), row=True)
+
+
+def _window_partial(q_scaled, win, li: int, w_live: int, num_kv_heads: int):
+    """Flash partials (acc, m, l) of attention over the chunk window's
+    first ``w_live`` raw rows of layer ``li`` — the JAX package's
+    arithmetic: bf16 query and rows with f32 products, every kv head's
+    rows against every q head with the off-group logits masked, the
+    probabilities rounded to bf16 for the value product.  q_scaled
+    (slots, H, d) f32 with 1/sqrt(d), WITHOUT the equalizer fold.
+    Returns acc (slots, H, d) f32 un-normalised, m and l (slots, H, 1)."""
+    from tgq_torch.kernels.paged_attention import DEFAULT_MASK_VALUE
+
+    wk, wv = win
+    slots, H, d = q_scaled.shape
+    kvh = num_kv_heads
+    rep = H // kvh
+    W = wk.shape[3]
+    kw = wk[li].reshape(slots, kvh * W, d).float()
+    vw = wv[li].reshape(slots, kvh * W, d).float()
+    q_bf = q_scaled.to(torch.bfloat16).float()
+    logits = torch.bmm(q_bf, kw.transpose(1, 2))                   # (slots, H, kvh·W)
+    view = logits.reshape(slots, kvh, rep, kvh, W)
+    dev = logits.device
+    k_own = torch.arange(kvh, device=dev).reshape(1, kvh, 1, 1, 1)
+    k_row = torch.arange(kvh, device=dev).reshape(1, 1, 1, kvh, 1)
+    wcol = torch.arange(W, device=dev).reshape(1, 1, 1, 1, W)
+    valid = (k_own == k_row) & (wcol < w_live)
+    logits = torch.where(valid, view, DEFAULT_MASK_VALUE).reshape(slots, H, kvh * W)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.bmm(p.to(torch.bfloat16).float(), vw)
+    return acc, m, l
+
+
+def _merge_partials(a, b):
+    """Exact merge of two flash partials (acc, m, l) into the normalised
+    output.  An empty side carries the finite mask max, so its weight
+    underflows to zero instead of forming -inf - -inf."""
+    acc_a, m_a, l_a = a
+    acc_b, m_b, l_b = b
+    m = torch.maximum(m_a, m_b)
+    ca, cb = torch.exp(m_a - m), torch.exp(m_b - m)
+    l = ca * l_a + cb * l_b
+    return (ca * acc_a + cb * acc_b) / torch.clamp(l, min=1e-30)
 
 
 def _decode_layer(lp, li: int, cfg: ModelConfig, x, cache: PagedKVCache, cos_p, sin_p,
-                  table, lens, live):
+                  table, lens, live, win=None, w_live: int = 0):
     """One decoder layer's decode for all slots; writes this layer's
-    current-token K/V into the pools (through the attention kernel)."""
+    current-token K/V into the pools (through the attention kernel), or,
+    in chunk-window mode (``win``), into window column ``w_live``."""
     from tgq_torch.kernels.paged_attention import paged_decode_attention
 
     slots = x.shape[0]
@@ -120,6 +182,7 @@ def _decode_layer(lp, li: int, cfg: ModelConfig, x, cache: PagedKVCache, cos_p, 
     # would be a synchronizing copy every layer
     scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
     qs = q.float() * scale
+    q_raw = qs  # the window's rows are raw: they take the query before the fold
     k_cur = k.reshape(slots, -1).float()
     v_cur = v.reshape(slots, -1).float()
     rep = cfg.num_heads // kvh
@@ -132,28 +195,42 @@ def _decode_layer(lp, li: int, cfg: ModelConfig, x, cache: PagedKVCache, cos_p, 
     if cache.v_eq is not None:
         v_cur = v_cur / cache.v_eq[li]
     quantized = cache.ks is not None
-    attn = paged_decode_attention(
-        qs, cache.k[li], cache.v[li], cache.ks[li] if quantized else None,
-        cache.vs[li] if quantized else None, lens, table, k_cur, v_cur, live=live,
-        num_kv_heads=kvh, write_current=True)
+    pools = (cache.k[li], cache.v[li], cache.ks[li] if quantized else None,
+             cache.vs[li] if quantized else None)
+    if win is None:
+        attn = paged_decode_attention(qs, *pools, lens, table, k_cur, v_cur, live=live,
+                                      num_kv_heads=kvh, write_current=True)
+    else:
+        attn = paged_decode_attention(qs, *pools, lens, table, k_cur, v_cur, num_kv_heads=kvh,
+                                      w_live=w_live, return_stats=True)
     if cache.v_eq is not None:
-        attn = (attn.reshape(slots, kvh, rep, d) * cache.v_eq[li].reshape(kvh, 1, d)).reshape(
+        # stored rows are V/eq: scale the (linear in V) pool part back, and
+        # never the raw window's part
+        veq = cache.v_eq[li].reshape(kvh, 1, d)
+        scale_v = lambda a: (a.reshape(slots, kvh, rep, d) * veq).reshape(  # noqa: E731
             slots, cfg.num_heads, d)
-    x = x + apply_linear(lp["self_attn"]["o_proj"], attn.reshape(slots, cfg.q_size).to(x.dtype))
+        attn = scale_v(attn) if win is None else (scale_v(attn[0]),) + attn[1:]
+    if win is not None:
+        attn = _merge_partials(attn, _window_partial(q_raw, win, li, w_live, kvh))
+        window_write_step(win, w_live, li, k, v)
+    x = x + apply_linear(lp["self_attn"]["o_proj"], attn.reshape(slots, cfg.q_size).to(x.dtype),
+                         row=True)
     h2 = rms_norm(x, lp["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
     return _mlp(lp, x, h2)
 
 
 def _decode_core(params, cache: PagedKVCache, cfg: ModelConfig, table, lens, tokens, pos,
-                 live=None):
+                 live=None, win=None, w_live: int = 0):
     """One token for every slot.  table (slots, mpps) int32; lens (slots,)
     lengths including the token being decoded; tokens (slots,) the input
     token; pos (slots,) its position (lens - 1).  Returns (slots, vocab)
-    f32 logits; the cache is updated in place."""
+    f32 logits; the cache (or, with ``win``, the window) is updated in
+    place."""
     x = embed_tokens(params, tokens[:, None])[:, 0]
     cos_p, sin_p = _rope_rows(cfg, pos)
     for li, lp in enumerate(params["model"]["layers"]):
-        x = _decode_layer(lp, li, cfg, x, cache, cos_p, sin_p, table, lens, live)
+        x = _decode_layer(lp, li, cfg, x, cache, cos_p, sin_p, table, lens, live,
+                          win=win, w_live=w_live)
     x = apply_final_norm(params, cfg, x[:, None])[:, 0]
     return lm_logits(params, cfg, x[:, None])[:, 0]
 
@@ -188,18 +265,24 @@ def _sample_tokens(logits, temps, gen: torch.Generator, greedy_only: bool = Fals
 @torch.no_grad()
 def decode_steps(params, cache: PagedKVCache, cfg: ModelConfig, table, lens, tokens, pos,
                  temps, gen: torch.Generator, n_steps: int, greedy_only: bool = False,
-                 live=None):
+                 live=None, window: bool = False):
     """``n_steps`` tokens for every slot, sampled on the device.  The page
     table must already cover ``lens + n_steps - 1`` tokens per slot.
     lens/pos follow ``decode_step`` at step 0 and advance by one each step.
-    Returns (tokens (n_steps, slots) int32, cache)."""
+    ``window`` (tensor-parallel serving): a chunk of more than one step
+    runs in chunk-window mode (the module docstring).  Returns (tokens
+    (n_steps, slots) int32, cache)."""
+    win = window_init(cache, tokens.shape[0], n_steps) if window and n_steps > 1 else None
     toks = []
-    tok = tokens
-    for _ in range(n_steps):
-        logits = _decode_core(params, cache, cfg, table, lens, tok, pos, live)
+    tok, pos0 = tokens, pos
+    for i in range(n_steps):
+        logits = _decode_core(params, cache, cfg, table, lens, tok, pos, live,
+                              win=win, w_live=i)
         tok = _sample_tokens(logits, temps, gen, greedy_only)
         toks.append(tok)
         lens, pos = lens + 1, pos + 1
+    if win is not None:
+        window_flush(cache, win, table, pos0, n_steps, live=live)
     return torch.stack(toks), cache
 
 
@@ -221,7 +304,7 @@ def _prefill_layer(lp, li: int, cfg: ModelConfig, x, cache: PagedKVCache, cos, s
     kv_write_pages(cache, li, slot_pages, k, v)
     attn = causal_attention(q, k, v)
     x = x + apply_linear(lp["self_attn"]["o_proj"],
-                         attn.reshape(b, seq, cfg.q_size).to(x.dtype))
+                         attn.reshape(b, seq, cfg.q_size).to(x.dtype), row=True)
     h2 = rms_norm(x, lp["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
     return _mlp(lp, x, h2)
 

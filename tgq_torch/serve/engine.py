@@ -1,5 +1,4 @@
-"""Continuous-batching generation engine (mirrors ``tgq/serve/engine.py``,
-single device).
+"""Continuous-batching generation engine (mirrors ``tgq/serve/engine.py``).
 
 A fixed set of decode slots; a request is admitted into a free slot when
 the page pool can hold its prompt, prefilled in chunks of prompts padded
@@ -10,6 +9,14 @@ With ``overlap_host`` the next chunk is dispatched from the previous
 chunk's on-device tokens before those are fetched; a slot that finishes
 inside the pipeline drops its speculative tokens, and its pages stay out
 of the free pool until the in-flight chunk's tokens have been fetched.
+
+With a ``mesh`` (``tgq_torch.parallel.make_mesh``) every rank builds the
+same engine: it keeps its tensor-parallel shards of the weights and its
+own kv heads' pools, and runs the host scheduling in lockstep with the
+other ranks.  Every rank samples from the same gathered logits with a
+generator seeded alike, so every rank holds the same tokens; a decode
+chunk of more than one step runs in chunk-window mode
+(``tgq_torch.serve.decode``).
 """
 from __future__ import annotations
 
@@ -23,6 +30,13 @@ import numpy as np
 import torch
 
 from tgq_torch.models.config import ModelConfig
+from tgq_torch.parallel.mesh import (
+    collective_phase,
+    local_config,
+    mark_tp_kinds,
+    serving_mesh_scope,
+    shard_params,
+)
 from tgq_torch.serve.decode import decode_steps, fuse_packed_projections, prefill_batch
 from tgq_torch.serve.kv_cache import PagedKVCache, PageTable, host_to_device
 from tgq_torch.utils.precision import resolve_device
@@ -118,19 +132,30 @@ def _mark_act_bits(params, bits: int):
     return out, n_marked
 
 
+def _local_heads(eq, cfg: ModelConfig, mesh) -> np.ndarray:
+    """This rank's kv heads' columns of (layers, kv_heads·head_dim)
+    equalizers."""
+    e = np.asarray(eq.cpu() if isinstance(eq, torch.Tensor) else eq, np.float32)
+    e = e.reshape(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim)
+    n = cfg.num_kv_heads // mesh.model
+    return e[:, mesh.model_rank * n:(mesh.model_rank + 1) * n].reshape(cfg.num_layers, -1)
+
+
 class Engine:
     def __init__(self, params, cfg: ModelConfig, scfg: ServeConfig, mesh=None,
                  device: str = "cuda"):
         """``params`` must already live on ``device`` (CUDA unless the
-        caller asks for the CPU)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving is queued in ROADMAP.md (queue 1, slice 3)")
+        caller asks for the CPU).  ``mesh``: this rank's
+        ``tgq_torch.parallel.Mesh``; ``params`` are then the whole model,
+        of which the engine keeps this rank's shards."""
         if cfg.family != "llama":
             raise NotImplementedError("the serving engine is llama-family")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg
+        self.mesh = mesh
+        # the config this rank computes with: its heads and MLP width
+        self.run_cfg = local_config(cfg, mesh)
         self.a8_active = False
         if scfg.a_bits == 8:
             params, n_marked = _mark_act_bits(params, 8)
@@ -138,10 +163,16 @@ class Engine:
             if not self.a8_active:
                 logger.warning("a_bits=8 requested but no decoder-layer linear is packed "
                                "at bits <= 4: A8 is a no-op")
+        k_eq, v_eq = scfg.kv_k_eq, scfg.kv_v_eq
+        if mesh is not None:
+            params = shard_params(mark_tp_kinds(params), mesh)
+            k_eq, v_eq = (None if e is None else _local_heads(e, cfg, mesh) for e in (k_eq, v_eq))
+        # fusing after sharding is exact: a rank's q/k/v (gate/up) shards
+        # share its input and concatenate along their outputs
         self.params = fuse_packed_projections(params)
-        self.cache = PagedKVCache.init(cfg, scfg.num_pages, scfg.page_size,
-                                       kv_bits=scfg.kv_bits, k_eq=scfg.kv_k_eq,
-                                       v_eq=scfg.kv_v_eq, device=self.device)
+        self.cache = PagedKVCache.init(self.run_cfg, scfg.num_pages, scfg.page_size,
+                                       kv_bits=scfg.kv_bits, k_eq=k_eq, v_eq=v_eq,
+                                       device=self.device)
         self.pt = PageTable(scfg.num_pages, scfg.page_size, scfg.max_slots,
                             scfg.max_pages_per_slot, backend=scfg.page_alloc)
         self.slots: list[Optional[Request]] = [None] * scfg.max_slots
@@ -243,10 +274,11 @@ class Engine:
             temps[i] = req.temperature if req.temperature is not None else self.scfg.temperature
             slot_pages[i] = self.pt.alloc_slot(s, len(req.prompt))
             self.slots[s] = req
-        toks, self.cache = prefill_batch(
-            self.params, self.cache, self.cfg, self._dev(slot_pages), self._dev(ids),
-            self._dev(true_len), self._dev(temps), self.gen,
-            greedy_only=bool((temps == 0).all()))
+        with serving_mesh_scope(self.mesh), collective_phase("prefill"):
+            toks, self.cache = prefill_batch(
+                self.params, self.cache, self.run_cfg, self._dev(slot_pages), self._dev(ids),
+                self._dev(true_len), self._dev(temps), self.gen,
+                greedy_only=bool((temps == 0).all()))
         self.prefill_wall_s += time.time() - t0
         self._pf.append(_PrefillChunk(toks, list(zip(slots, group))))
         self._staging.update(slots)
@@ -324,10 +356,11 @@ class Engine:
         # every slot is computed, only active ones may write KV
         live = np.zeros((self.scfg.max_slots,), np.int32)
         live[active] = 1
-        toks, self.cache = decode_steps(
-            self.params, self.cache, self.cfg, table, self._dev(lens0 + 1), tokens,
-            self._dev(lens0), self._dev(temps), self.gen, n, greedy_only=greedy,
-            live=self._dev(live))
+        with serving_mesh_scope(self.mesh), collective_phase("decode"):
+            toks, self.cache = decode_steps(
+                self.params, self.cache, self.run_cfg, table, self._dev(lens0 + 1), tokens,
+                self._dev(lens0), self._dev(temps), self.gen, n, greedy_only=greedy,
+                live=self._dev(live), window=self.mesh is not None and self.mesh.model > 1)
         self.steps += n
         return _Chunk(toks, [(s, self.slots[s]) for s in active], n)
 

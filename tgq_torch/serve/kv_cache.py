@@ -13,9 +13,14 @@
   the scratch page that freed slots' entries clamp to.
 - Writes update the pools in place (``index_put_``); a layer is the view
   ``cache.k[li]``.
-
-Not ported (ROADMAP.md): the TP layout (``pack_segments > 1``) and its
-chunk window.
+- ``pack_segments``: int4 rows packed split-half within that many equal
+  segments of the fused row, the JAX package's tensor-parallel layout (a
+  shard's byte slice of a ``pack_segments == tp`` pool is the one-segment
+  pool of its own heads, which is what a rank of ``tgq_torch.parallel``
+  holds).
+- The chunk window of tensor-parallel decode (``window_init``,
+  ``window_write_step``, ``window_flush``): a chunk's decoded K/V rows,
+  raw bf16, flushed into the pools once per chunk.
 """
 from __future__ import annotations
 
@@ -196,14 +201,16 @@ class PagedKVCache:
         if self.num_kv_heads <= 0 or self.fused_dim % self.num_kv_heads:
             raise ValueError(f"PagedKVCache: num_kv_heads={self.num_kv_heads}, "
                              f"fused dim {self.fused_dim}")
-        if self.pack_segments != 1:
-            raise NotImplementedError(
-                "pack_segments > 1 is the TP layout (ROADMAP.md queue 1)")
+        seg = self.pack_segments
+        if seg != 1 and (self.k.dtype != torch.uint8 or seg < 1 or self.num_kv_heads % seg
+                         or (self.fused_dim // seg) % 2):
+            raise ValueError(f"PagedKVCache: pack_segments={seg} needs int4 pools whose "
+                             f"{self.num_kv_heads} kv heads split into even segments")
 
     @classmethod
     def init(cls, cfg: ModelConfig, num_pages: int, page_size: int,
              dtype=torch.bfloat16, kv_bits: int = 16, k_eq=None, v_eq=None,
-             device="cpu") -> "PagedKVCache":
+             device="cpu", pack_segments: int = 1) -> "PagedKVCache":
         fused = cfg.num_kv_heads * cfg.head_dim
         shape = (cfg.num_layers, num_pages, page_size, fused)
         if kv_bits in (8, 4):
@@ -222,7 +229,8 @@ class PagedKVCache:
                        v=torch.zeros(shape, dtype=dt, device=device),
                        ks=torch.zeros(sshape, dtype=torch.float32, device=device),
                        vs=torch.zeros(sshape, dtype=torch.float32, device=device),
-                       k_eq=eq(k_eq), v_eq=eq(v_eq), num_kv_heads=cfg.num_kv_heads)
+                       k_eq=eq(k_eq), v_eq=eq(v_eq), num_kv_heads=cfg.num_kv_heads,
+                       pack_segments=pack_segments if kv_bits == 4 else 1)
         assert kv_bits == 16, kv_bits
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
@@ -256,22 +264,29 @@ def _absmax_quantize(x: torch.Tensor):
     return torch.round(xf / s[..., None]).to(torch.int8), s
 
 
-def _absmax_quantize4(x: torch.Tensor):
+def _absmax_quantize4(x: torch.Tensor, segments: int = 1):
     """(..., kvh, d) → nibble-packed uint8 (..., kvh·d/2) + (..., kvh) f32
     per-head scales: symmetric absmax/7, codes clipped to [-7, 7] and
-    biased by 8, byte j = c[j] | c[j + F/2] << 4 over the fused row."""
+    biased by 8, split-half within each of ``segments`` equal contiguous
+    chunks of the fused row (byte j of a segment of S features holds
+    c[j] | c[j + S/2] << 4)."""
     xf = x.float()
     s = torch.clamp(xf.abs().amax(dim=-1) * (1.0 / 7.0), min=1e-10)
     q = torch.clamp(torch.round(xf / s[..., None]), -7, 7).to(torch.int32) + 8
     flat = q.reshape(*q.shape[:-2], -1)
-    half = flat.shape[-1] // 2
-    return (flat[..., :half] | (flat[..., half:] << 4)).to(torch.uint8), s
+    fused = flat.shape[-1]
+    seg = flat.reshape(*flat.shape[:-1], segments, fused // segments)
+    half = fused // segments // 2
+    packed = (seg[..., :half] | (seg[..., half:] << 4)).reshape(*flat.shape[:-1], fused // 2)
+    return packed.to(torch.uint8), s
 
 
-def kv_unpack4(w: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+def kv_unpack4(w: torch.Tensor, dtype=torch.float32, segments: int = 1) -> torch.Tensor:
     """Inverse of the nibble packing: (..., F/2) uint8 → (..., F) codes."""
     wi = w.to(torch.int32)
-    return torch.cat([(wi & 0xF) - 8, ((wi >> 4) & 0xF) - 8], dim=-1).to(dtype)
+    seg = wi.reshape(*wi.shape[:-1], segments, wi.shape[-1] // segments)
+    out = torch.cat([(seg & 0xF) - 8, ((seg >> 4) & 0xF) - 8], dim=-1)
+    return out.reshape(*wi.shape[:-1], 2 * wi.shape[-1]).to(dtype)
 
 
 def _eq_div(x: torch.Tensor, eq: Optional[torch.Tensor], layer: int) -> torch.Tensor:
@@ -290,7 +305,9 @@ def _pad_scales(s: torch.Tensor, spad: int) -> torch.Tensor:
 
 
 def _quant(cache: PagedKVCache):
-    return _absmax_quantize4 if cache.kv_bits == 4 else _absmax_quantize
+    if cache.kv_bits == 4:
+        return lambda x: _absmax_quantize4(x, cache.pack_segments)
+    return _absmax_quantize
 
 
 def kv_write_token(cache: PagedKVCache, layer: int, pages: torch.Tensor,
@@ -376,7 +393,8 @@ def kv_write_pages(cache: PagedKVCache, layer: int, slot_pages: torch.Tensor,
 
 
 def gather_pools(k_pool: torch.Tensor, v_pool: torch.Tensor, k_scales, v_scales,
-                 table: torch.Tensor, num_kv_heads: int, dtype=torch.float32):
+                 table: torch.Tensor, num_kv_heads: int, dtype=torch.float32,
+                 segments: int = 1):
     """One layer's pools (P, page, Fs) [+ scales (P, kvh, spad)] gathered
     through ``table`` (slots, mpps) and dequantized element-wise:
     (slots, mpps·page, kvh, d) K and V, equalizers NOT applied."""
@@ -385,7 +403,7 @@ def gather_pools(k_pool: torch.Tensor, v_pool: torch.Tensor, k_scales, v_scales,
     idx = table.long()
     k_l, v_l = k_pool[idx], v_pool[idx]           # (slots, mpps, page, Fs)
     if k_pool.dtype == torch.uint8:
-        k_l, v_l = kv_unpack4(k_l, dtype), kv_unpack4(v_l, dtype)
+        k_l, v_l = kv_unpack4(k_l, dtype, segments), kv_unpack4(v_l, dtype, segments)
     d = k_l.shape[-1] // num_kv_heads
     kg = k_l.reshape(slots, mpps * page, num_kv_heads, d).to(dtype)
     vg = v_l.reshape(slots, mpps * page, num_kv_heads, d).to(dtype)
@@ -407,10 +425,71 @@ def kv_gather(cache: PagedKVCache, layer: int, table: torch.Tensor,
     kg, vg = gather_pools(cache.k[layer], cache.v[layer],
                           None if cache.ks is None else cache.ks[layer],
                           None if cache.vs is None else cache.vs[layer],
-                          table, kvh, dtype)
+                          table, kvh, dtype, cache.pack_segments)
     if cache.ks is not None:
         if cache.k_eq is not None:
             kg = kg * cache.k_eq[layer].reshape(kvh, d).to(dtype)
         if cache.v_eq is not None:
             vg = vg * cache.v_eq[layer].reshape(kvh, d).to(dtype)
     return kg, vg
+
+
+# ----------------------------------------------------- chunk window
+#
+# Tensor-parallel decode keeps a chunk's decoded K/V rows out of the pools
+# until the chunk ends: they land raw (bf16, un-equalized) in this small
+# layer-stacked window, which decode attends with plain torch ops
+# (tgq_torch.serve.decode._window_partial) while K5 covers the pools, and
+# one quantize + scatter per chunk moves them into the pools.
+
+
+def window_init(cache: PagedKVCache, slots: int, w: int):
+    """(wk, wv) zeros of shape (L, slots, kvh, w, d) bf16 — one decode
+    chunk's raw K/V rows, kv heads ahead of tokens as in the JAX package."""
+    L = cache.k.shape[0]
+    shape = (L, slots, cache.num_kv_heads, w, cache.head_dim)
+    return (torch.zeros(shape, dtype=torch.bfloat16, device=cache.k.device),
+            torch.zeros(shape, dtype=torch.bfloat16, device=cache.k.device))
+
+
+def window_write_step(win, i: int, layer: int, k_rows: torch.Tensor,
+                      v_rows: torch.Tensor) -> None:
+    """Write one step's raw (slots, kvh, d) rows of ``layer`` into window
+    column ``i``, in place (decode writes each layer's rows as it makes
+    them; the JAX package writes all layers' at once)."""
+    wk, wv = win
+    wk[layer, :, :, i] = k_rows.to(wk.dtype)
+    wv[layer, :, :, i] = v_rows.to(wv.dtype)
+
+
+def window_flush(cache: PagedKVCache, win, table: torch.Tensor, pos0: torch.Tensor,
+                 n: int, live=None) -> PagedKVCache:
+    """Quantize (for quantized pools, with the equalizers) and scatter the
+    window's first ``n`` columns into the pools, in place.  table (slots,
+    mpps); pos0 (slots,) the position of column 0; a slot with ``live`` 0
+    flushes to the page-0 scratch."""
+    wk, wv = win
+    L, slots, kvh, _, d = wk.shape
+    page = cache.page_size
+    j = torch.arange(n, dtype=pos0.dtype, device=pos0.device)
+    pos = (pos0[:, None] + j[None, :]).long()                  # (slots, n)
+    pidx = torch.clamp(pos // page, 0, table.shape[1] - 1)
+    pages = torch.gather(table.long(), 1, pidx)
+    if live is not None:
+        pages = torch.where(live[:, None] > 0, pages, torch.zeros_like(pages))
+    offsets = (pos % page).reshape(-1)
+    pages = pages.reshape(-1)
+    # (L, slots, kvh, W, d) → (L, slots·n, kvh, d): tokens ahead of heads
+    k_rows = wk[:, :, :, :n].transpose(2, 3).reshape(L, slots * n, kvh, d).float()
+    v_rows = wv[:, :, :, :n].transpose(2, 3).reshape(L, slots * n, kvh, d).float()
+    if cache.ks is None:
+        cache.k[:, pages, offsets] = k_rows.reshape(L, slots * n, -1).to(cache.k.dtype)
+        cache.v[:, pages, offsets] = v_rows.reshape(L, slots * n, -1).to(cache.v.dtype)
+        return cache
+    qk, sk = _quant(cache)(_eq_div_all(k_rows, cache.k_eq))   # codes, (L, slots·n, kvh)
+    qv, sv = _quant(cache)(_eq_div_all(v_rows, cache.v_eq))
+    cache.k[:, pages, offsets] = qk.reshape(L, slots * n, -1)
+    cache.v[:, pages, offsets] = qv.reshape(L, slots * n, -1)
+    cache.ks[:, pages, :, offsets] = sk.transpose(0, 1)
+    cache.vs[:, pages, :, offsets] = sv.transpose(0, 1)
+    return cache

@@ -55,24 +55,35 @@ def gram(x: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class HessianAccumulator:
-    """H = (1/N) Σ xᵀx over calibration tokens for one layer-group input."""
+    """H = (1/N) Σ xᵀx over calibration tokens for one layer-group input.
+    With ``parts`` (a list) each update's Gram is kept there instead of
+    added, for a data-parallel sum in a fixed order
+    (``tgq_torch.parallel.mesh.dp_sum``)."""
 
     h: torch.Tensor
     n_samples: int = 0
+    parts: list | None = None
 
     @classmethod
-    def init(cls, in_features: int, device="cpu") -> "HessianAccumulator":
+    def init(cls, in_features: int, device="cpu", keep_parts: bool = False
+             ) -> "HessianAccumulator":
         return cls(h=torch.zeros((in_features, in_features), dtype=torch.float32,
-                                 device=device))
+                                 device=device), parts=[] if keep_parts else None)
+
+    def _add(self, g: torch.Tensor) -> None:
+        if self.parts is None:
+            self.h += g
+        else:
+            self.parts.append(g)
 
     def update(self, x: torch.Tensor) -> "HessianAccumulator":
-        self.h += gram(x)
+        self._add(gram(x))
         self.n_samples += x.numel() // x.shape[-1]
         return self
 
     def update_t(self, xt: torch.Tensor) -> "HessianAccumulator":
         """Update from a transposed (features, tokens) operand."""
-        self.h += gram_t(xt.reshape(xt.shape[0], -1))
+        self._add(gram_t(xt.reshape(xt.shape[0], -1)))
         self.n_samples += xt.numel() // xt.shape[0]
         return self
 
