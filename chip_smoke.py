@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 0,9       # equalizers, soak, harnesses, tables
     python3 chip_smoke.py --phases 0,10      # tensor and data parallelism (runs phase 3's
                                              # sweep itself when phase 3 is not asked for)
+    python3 chip_smoke.py --phases 0,11      # K6 (causal flash attention), the slice-9 CLIs
 
 Phases:
   0. the card's name and power limit; build the CUDA kernels from
@@ -51,7 +52,8 @@ Phases:
      ``python -m tgq_torch.cli.quantize`` with ``--hf_export
      --resume_dir --profile_dir``: rel_error against RTN, PPL against the
      unquantized model, K1/K2 launches against the counts the shapes
-     give, the export's logits against the in-memory model's bit for
+     give (plus one sweep for each factor build the pchol ladder
+     re-sweeps), the export's logits against the in-memory model's bit for
      bit, the trace's kernel names; K1 and K2 at the families' widths
      against their plain versions; an untraced rerun for s/layer; GPT-2
      stopped after layer 5 and resumed, codes bit for bit.
@@ -98,6 +100,19 @@ Phases:
      3's setting, held to phase 3's run (Gram error at most 2x, < 2 % of
      q_proj's weights moved, PPL within 2 %).  A failure in any rank fails
      the phase.
+ 11. K6, the causal flash attention of every whole-sequence forward
+     (calibration, PPL, equalizer calibration, prefill, GPT-2 / OPT): (a)
+     against its plain version within ``causal_attention.tolerance`` at
+     lengths 1, 7, 64, 100, 129, 2047, 2048, head_dim 16 / 64 / 128, GQA
+     groups 1 / 4 / 8, Qwen3-8B's 32 / 8 heads and its TP 2 rank's 16 / 4,
+     a peaked softmax; two launches, a batch of 8 and each sequence alone,
+     head slices and the full launch, all bit for bit; (b) timed at the
+     main paths' shapes beside its bound, its plain version and SDPA (the
+     yardstick only); (c) K6's launch counter is set to 0 before and read
+     after phases 3, 4, 7b, 8 and 10 (on each rank), > 0 on each; (d)
+     ``trunc_regimes`` (one cell), ``tiny_quality_bench`` (300 steps, W4,
+     A16 and A8), ``boundary_bench`` and ``reproduce_baseline --smoke`` on
+     the card, each with the counters read around it.
 
 Every mismatch raises; the script exits 0 only if every phase passed.
 The second-to-last line is a JSON object with one entry per kernel, the
@@ -170,13 +185,15 @@ def outlier_spectrum(n: int, gen, dev):
 
 
 def bits_equal(x, y) -> bool:
-    """Same shape and the same bits (f32 compared as int32)."""
+    """Same shape and the same bits (f32 and bf16 compared as integers)."""
     import torch
 
     if x.shape != y.shape or x.dtype != y.dtype:
         return False
     if x.dtype == torch.float32:
         x, y = x.view(torch.int32), y.view(torch.int32)
+    elif x.dtype == torch.bfloat16:
+        x, y = x.view(torch.int16), y.view(torch.int16)
     return bool(torch.equal(x, y))
 
 
@@ -1010,7 +1027,7 @@ def stored_kv_attention(cfg, cache, table_row, eq, window=None):
     stand for positions p0 .. p0+w-1 (not yet in the pools)."""
     import torch
 
-    from tgq_torch.models.causal_lm import _naive_causal_attention
+    from tgq_torch.kernels.causal_attention import causal_attention_plain
     from tgq_torch.serve.kv_cache import gather_pools
 
     calls = [0]
@@ -1020,7 +1037,7 @@ def stored_kv_attention(cfg, cache, table_row, eq, window=None):
         calls[0] += 1
         n, h, d = q.shape[1:]
         kvh = k.shape[2]
-        out = _naive_causal_attention(q, k, v).float()
+        out = causal_attention_plain(q, k, v).float()
         quantized = cache.ks is not None
         kg, vg = gather_pools(cache.k[li], cache.v[li], cache.ks[li] if quantized else None,
                               cache.vs[li] if quantized else None, table_row, kvh,
@@ -1051,7 +1068,7 @@ def paged_vs_recompute(params, cfg, dev, steps: int, rel_tol: float, fault=None,
     token attends the rows the cache stored, ``stored_kv_attention``); at
     every step each slot's logits against
     ``forward`` recomputed on the whole sequence with the dequantized dense
-    bf16 weights (no K3/K5; ``ref_attn`` "auto" is bf16 SDPA on CUDA,
+    bf16 weights (no K3/K5; ``ref_attn`` "auto" is K6 on CUDA,
     "naive" an f32 softmax).  ``fault`` plants a bug for a control reading:
     "attention" passes K5 a zero current V row (so the current token's
     value is lost, in the output and in the pool), "matmul" zeroes every
@@ -1257,7 +1274,7 @@ def phase7_serving(dev, counts: dict, preset: str = "qwen3-8b", check_layers: in
                    serve_layers=None, steps: int = 16, serve_args=None) -> list:
     """(a) prefill + ``steps`` decode steps on 2 slots at ``check_layers``
     layers, logits held at every step against full-recompute ``forward``
-    on the dequantized dense weights (SDPA attention, no K3/K5), beside
+    on the dequantized dense weights (K6 attention, no K3/K5), beside
     the same with bf16-exact weights and two planted faults that the
     tolerance must catch (``paged_vs_recompute``);
     (b) ``tgq_torch.cli.serve.run`` at all layers with kv_bits 16, 8, and
@@ -1268,6 +1285,7 @@ def phase7_serving(dev, counts: dict, preset: str = "qwen3-8b", check_layers: in
 
     from tgq_torch.cli.serve import build_parser, run
     from tgq_torch.core.quant import QuantSpec
+    from tgq_torch.kernels import causal_attention as K6
     from tgq_torch.kernels import dequant_matmul as KD
     from tgq_torch.kernels import paged_attention as K5
     from tgq_torch.models import PRESETS
@@ -1311,7 +1329,7 @@ def phase7_serving(dev, counts: dict, preset: str = "qwen3-8b", check_layers: in
         full = PRESETS[args.model_id]
         if serve_layers is not None:  # a cut depth, for rehearsals
             PRESETS[args.model_id] = dataclasses.replace(full, num_layers=serve_layers)
-        KD.launches = KD.launches_a8 = K5.launches = 0
+        KD.launches = KD.launches_a8 = K5.launches = K6.launches = 0
         t0 = time.time()
         try:
             res = run(args)
@@ -1320,7 +1338,9 @@ def phase7_serving(dev, counts: dict, preset: str = "qwen3-8b", check_layers: in
         if dev.type == "cuda":
             torch.cuda.synchronize()
         got = {"dequant_matmul": KD.launches, "a8_matmul": KD.launches_a8,
-               "paged_attention": K5.launches}
+               "paged_attention": K5.launches, "causal_attention": K6.launches}
+        log(f"[phase11c] 7b {' '.join(extra)}: causal_attention launches "
+            f"{got['causal_attention']}")
         for k, v in got.items():
             counts[k] = counts.get(k, 0) + v
         print(json.dumps(res), flush=True)
@@ -1333,6 +1353,7 @@ def phase7_serving(dev, counts: dict, preset: str = "qwen3-8b", check_layers: in
             base[base.index("--gen_tokens") + 1])
         assert res["total_tokens"] == n_req * gen_tok, res
         assert got["dequant_matmul"] > 0 and got["paged_attention"] > 0, got
+        assert got["causal_attention"] > 0 or dev.type != "cuda", got
         if "--a_bits" in extra:
             assert got["a8_matmul"] > 0 and res["config"]["a_bits"] == 8, (got, res["config"])
         results.append(res)
@@ -1493,6 +1514,30 @@ def k2_new_width(K2, w, h, label: str, time_it, group_size: int = 128) -> dict:
     return {"m": m, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
+@contextlib.contextmanager
+def pchol_resweeps():
+    """The widths of the Hessians whose pchol factor build escalated to a
+    second sweep (``tgq_torch.solver.pchol.pchol_factor``'s warning: a
+    non-finite build at pivot_rtol < 1e-3 sweeps again at 1e-3), read from
+    the solver's log while the block runs."""
+    import logging
+
+    widths: list[int] = []
+
+    class Escalations(logging.Handler):
+        def emit(self, record):
+            if "escalating" in record.msg and record.args[3] < 1e-3:
+                widths.append(int(record.args[1]))
+
+    handler = Escalations(level=logging.WARNING)
+    log_ = logging.getLogger("tgq_torch.solver.pchol")
+    log_.addHandler(handler)
+    try:
+        yield widths
+    finally:
+        log_.removeHandler(handler)
+
+
 def quantize_family(dev, counts: dict, tmp: str, preset: str, n_files: int, n_samples: int,
                     group_size: int = 128):
     """Phase 8 for one model: write its HF checkpoint, quantize it through
@@ -1525,8 +1570,9 @@ def quantize_family(dev, counts: dict, tmp: str, preset: str, n_files: int, n_sa
     log(f"[phase8] {preset}: unquantized PPL {base_ppl:.4f} ({time.time() - t0:.1f} s)")
     K1.launches = K2.launches = 0
     t0 = time.time()
-    assert main(args + ["--save_path", out, "--hf_export", "--resume_dir", res_dir,
-                        "--profile_dir", prof]) == 0
+    with pchol_resweeps() as resweeps:
+        assert main(args + ["--save_path", out, "--hf_export", "--resume_dir", res_dir,
+                            "--profile_dir", prof]) == 0
     cli_s = time.time() - t0
     k1_n, k2_n = K1.launches, K2.launches
     counts["pchol_panel"] = counts.get("pchol_panel", 0) + k1_n
@@ -1537,13 +1583,17 @@ def quantize_family(dev, counts: dict, tmp: str, preset: str, n_files: int, n_sa
     per_layer = metrics["phase_timing"]
     q_ppl = metrics["quantized_ppl"]
     widths, mod_widths = groups_in_features(cfg)
-    want_k1 = cfg.num_layers * sum(-(-w // 128) for w in widths)
+    # one sweep a group, and one more for each build pchol_factor escalates
+    # (a non-finite factor at pivot_rtol < 1e-3 re-sweeps the same Hessian)
+    want_k1 = cfg.num_layers * sum(-(-w // 128) for w in widths) + \
+        sum(-(-w // 128) for w in resweeps)
     want_k2 = cfg.num_layers * sum(-(-w // 256) for w in mod_widths)
     log(f"[phase8] {preset}: CLI quantize {cli_s:.1f} s under the trace (pipeline "
         f"{metrics['total_time']:.1f} s, {metrics['total_time'] / cfg.num_layers:.3f} s/layer"
         f"); phases {json.dumps(per_layer)}")
-    log(f"[phase8] {preset}: launches pchol_panel {k1_n} (from the shapes {want_k1}), "
-        f"gptq_block {k2_n} (from the shapes {want_k2})")
+    log(f"[phase8] {preset}: launches pchol_panel {k1_n} (from the shapes {want_k1}, with "
+        f"{len(resweeps)} escalated builds re-swept at widths {resweeps}), gptq_block {k2_n} "
+        f"(from the shapes {want_k2})")
     if dev.type == "cuda":  # the wrappers count launches of the kernels only
         assert (k1_n, k2_n) == (want_k1, want_k2), (k1_n, want_k1, k2_n, want_k2)
     # PERF.md section 2: rel_error <= RTN's where pchol keeps at least half
@@ -1740,7 +1790,8 @@ KERNEL_COUNTERS = (("pchol_panel", "pchol_panel", "launches"),
                    ("gptq_block", "gptq_block", "launches"),
                    ("dequant_matmul", "dequant_matmul", "launches"),
                    ("a8_matmul", "dequant_matmul", "launches_a8"),
-                   ("paged_attention", "paged_attention", "launches"))
+                   ("paged_attention", "paged_attention", "launches"),
+                   ("causal_attention", "causal_attention", "launches"))
 
 
 @contextlib.contextmanager
@@ -1764,7 +1815,7 @@ def counted(counts: dict, label: str, expect=()):
     for name, _, attr in KERNEL_COUNTERS:
         got[name] = getattr(mods[name], attr)
         counts[name] = counts.get(name, 0) + got[name]
-    log(f"[phase9] {label}: launches {got}")
+    log(f"[launches] {label}: {got}")
     if torch.cuda.is_available():
         assert all(got[k] > 0 for k in expect), (label, got, expect)
 
@@ -2289,11 +2340,12 @@ def tp_decode_rank(preset: str, layers: int, kv_list, chunk: int, n_chunks: int,
     two prompts (100 and 37 tokens), then ``n_chunks`` decode chunks of
     ``chunk`` steps in chunk-window mode, each step's logits held on rank 0
     against full-recompute ``forward`` (``paged_vs_recompute``'s reference:
-    the dequantized dense weights, SDPA; for int4 KV the last token attends
+    the dequantized dense weights, K6; for int4 KV the last token attends
     the rows the ranks' caches and windows hold, ``stored_kv_attention``)."""
     import torch
 
     from tgq_torch.core.quant import QuantSpec
+    from tgq_torch.kernels import causal_attention as K6
     from tgq_torch.kernels import dequant_matmul as KD
     from tgq_torch.kernels import paged_attention as K5
     from tgq_torch.models import PRESETS
@@ -2317,7 +2369,7 @@ def tp_decode_rank(preset: str, layers: int, kv_list, chunk: int, n_chunks: int,
     real_causal = CL.causal_attention
     out = {}
     for kv_bits in kv_list:
-        KD.launches = KD.launches_a8 = K5.launches = 0
+        KD.launches = KD.launches_a8 = K5.launches = K6.launches = 0
         t0 = time.time()
         gen = torch.Generator(device="cpu").manual_seed(7)
         prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
@@ -2385,7 +2437,8 @@ def tp_decode_rank(preset: str, layers: int, kv_list, chunk: int, n_chunks: int,
                         "tokens": all_toks, "seconds": time.time() - t0,
                         "launches": {"dequant_matmul": KD.launches,
                                      "a8_matmul": KD.launches_a8,
-                                     "paged_attention": K5.launches}}
+                                     "paged_attention": K5.launches,
+                                     "causal_attention": K6.launches}}
     return out
 
 
@@ -2420,6 +2473,7 @@ def phase10c_serve(dev, counts: dict, single=None, preset: str = "qwen3-8b",
                 counts[k] = counts.get(k, 0) + v
             if dev.type == "cuda":
                 assert got["dequant_matmul"] > 0 and got["paged_attention"] > 0, got
+                assert got["causal_attention"] > 0, got
                 assert got["a8_matmul"] > 0 or "--a_bits" not in extra, got
         step_ms = res["decode_wall_s"] / max(c["decode_steps"], 1) * 1e3
         ar_ms = par["decode_collective_ms_per_step"]
@@ -2456,6 +2510,7 @@ def dp_tp_quantize_rank(preset: str, n_samples: int, seq: int, group_size: int,
     from tgq_torch.calib import QuantizeConfig, quantize_model, synthetic_calibration
     from tgq_torch.calib.data import synthetic_eval_stream
     from tgq_torch.eval import perplexity_from_token_stream
+    from tgq_torch.kernels import causal_attention as K6
     from tgq_torch.kernels import gptq_block as K2
     from tgq_torch.kernels import pchol_panel as K1
     from tgq_torch.models import PRESETS
@@ -2485,7 +2540,7 @@ def dp_tp_quantize_rank(preset: str, n_samples: int, seq: int, group_size: int,
         out["gram_err"] = float((h.double() - h64).abs().max() / h64.abs().max())
         del h64
     del h
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K6.launches = 0
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.time()
@@ -2493,7 +2548,8 @@ def dp_tp_quantize_rank(preset: str, n_samples: int, seq: int, group_size: int,
     if dev.type == "cuda":
         torch.cuda.synchronize()
     out.update(seconds=time.time() - t0, launches={"pchol_panel": K1.launches,
-                                                   "gptq_block": K2.launches},
+                                                   "gptq_block": K2.launches,
+                                                   "causal_attention": K6.launches},
                ranks={st["name"]: st["rank"] for st in run_log["layer_stats"]},
                packed=len(packed))
     # the other ranks give their memory back before rank 0's evaluation
@@ -2555,7 +2611,8 @@ def phase10_parallel(dev, counts: dict, k5: dict, p3=None, single=None,
         assert r0["tokens"] == r1["tokens"], kv_bits
         if dev.type == "cuda":
             assert all(r["launches"]["dequant_matmul"] > 0 and r["launches"]["paged_attention"]
-                       > 0 for r in (r0, r1)), (r0["launches"], r1["launches"])
+                       > 0 and r["launches"]["causal_attention"] > 0 for r in (r0, r1)), (
+                r0["launches"], r1["launches"])
     mark("b")
     phase10c_serve(dev, counts, single, preset, serve_args)
     mark("c")
@@ -2578,6 +2635,7 @@ def phase10_parallel(dev, counts: dict, k5: dict, p3=None, single=None,
         assert r["ranks"] == r0["ranks"] and r["packed"] == 2 * 7, (r["ranks"], r0["ranks"])
         if dev.type == "cuda":
             assert r["launches"]["pchol_panel"] > 0 and r["launches"]["gptq_block"] > 0, r
+            assert r["launches"]["causal_attention"] > 0, r
     ranks = "; ".join(f"{name.split('.', 1)[1]} {r0['ranks'][name]} (phase 3 {p3['ranks'][name]})"
                       for name in r0["ranks"] if name.startswith("layer_0"))
     ppl_rel = r0["ppl"] / p3["ppl"] - 1
@@ -2596,9 +2654,196 @@ def phase10_parallel(dev, counts: dict, k5: dict, p3=None, single=None,
         f"{marks}); {card_line()}")
 
 
+# ------------------------- slice 9: K6, causal flash attention, and the CLIs (11)
+
+K6_SHAPES = (  # (label, batch, tokens, q heads, kv heads, head_dim) of the main paths
+    ("calibration batch", 8, 2048, 32, 8, 128),
+    ("PPL window batch", 4, 2048, 32, 8, 128),
+    ("GPT-2 calibration batch", 8, 1024, 12, 12, 64),
+    ("OPT-1.3b calibration batch", 8, 2048, 32, 32, 64),
+    ("prefill wave 16 x 128", 16, 128, 32, 8, 128),
+)
+
+
+@contextlib.contextmanager
+def k6_counted(counts: dict, label: str):
+    """K6's launch counter set to 0 just before a main path and read just
+    after; the launches join ``counts`` and, on CUDA, must be > 0."""
+    import torch
+
+    from tgq_torch.kernels import causal_attention as K6
+
+    K6.launches = 0
+    yield
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    n = K6.launches
+    counts["causal_attention"] = counts.get("causal_attention", 0) + n
+    log(f"[phase11c] {label}: causal_attention launches {n}")
+    if torch.cuda.is_available():
+        assert n > 0, label
+
+
+def k6_inputs(gen, dev, b: int, s: int, h: int, kv: int, d: int, q_scale: float = 1.0):
+    """bf16 q (b, s, h, d), k and v (b, s, kv, d) from ``gen``; q times
+    ``q_scale`` (a larger one peaks the softmax)."""
+    import torch
+
+    def draw(heads, scale=1.0):
+        return (torch.randn((b, s, heads, d), generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    return draw(h, q_scale), draw(kv), draw(kv)
+
+
+def phase11a_k6_check(dev, k6: dict) -> None:
+    """K6 against its plain version: every element within
+    ``causal_attention.tolerance`` (2^-8 + 2^-12 of the row's Σ p·|v| for the
+    bf16 probabilities and the f32 order, and 2 bf16 ulps for the outputs'
+    roundings); then two launches, a batch and each sequence alone, a head
+    slice and the full launch, bit for bit."""
+    import torch
+
+    from tgq_torch.kernels import causal_attention as K6
+
+    t0 = time.time()
+    before = K6.launches
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = [(1, s, 32, 8, 128, 1.0) for s in (1, 7, 64, 100, 129, 2047, 2048)]
+    cases += [(2, 129, 4, 2, 16, 1.0), (2, 1000, 4, 2, 16, 1.0),     # tiny-qwen3's heads
+              (2, 1024, 12, 12, 64, 1.0), (1, 2048, 32, 32, 64, 1.0),  # GPT-2, OPT-1.3b
+              (2, 300, 8, 8, 128, 1.0), (2, 300, 32, 4, 128, 1.0),     # GQA groups 1 and 8
+              (2, 2048, 16, 4, 128, 1.0),                               # Qwen3-8B at TP 2
+              (2, 777, 32, 8, 128, 8.0), (2, 200, 12, 12, 64, 8.0)]    # peaked softmax
+    worst, worst_ratio = 0.0, 0.0
+    for b, s, h, kv, d, qs in cases:
+        q, k, v = k6_inputs(gen, dev, b, s, h, kv, d, qs)
+        out = K6.flash_causal_attention(q, k, v)
+        ref = K6.causal_attention_plain(q, k, v)
+        err = (out.float() - ref.float()).abs()
+        ratio = float((err / K6.tolerance(q, k, v, ref)).max())
+        worst, worst_ratio = max(worst, float(err.max())), max(worst_ratio, ratio)
+        log(f"[phase11a] K6 b {b} s {s} heads {h}/{kv} d {d} q x{qs:g}: max|do| "
+            f"{float(err.max()):.3e} (max|o| {float(ref.float().abs().max()):.3f}), "
+            f"max err / tolerance {ratio:.3f}")
+        assert torch.isfinite(out.float()).all() and ratio <= 1.0, (b, s, h, kv, d, ratio)
+        del q, k, v, out, ref, err
+
+    q, k, v = k6_inputs(gen, dev, 2, 2048, 32, 8, 128)
+    rep = bits_equal(K6.flash_causal_attention(q, k, v), K6.flash_causal_attention(q, k, v))
+    q, k, v = k6_inputs(gen, dev, 8, 300, 16, 4, 128)
+    full = K6.flash_causal_attention(q, k, v)
+    alone = all(bits_equal(full[i:i + 1], K6.flash_causal_attention(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1])) for i in range(8))
+    q, k, v = k6_inputs(gen, dev, 2, 512, 32, 8, 128)
+    full = K6.flash_causal_attention(q, k, v)
+    sliced = all(bits_equal(full[:, :, h0:h1], K6.flash_causal_attention(
+        q[:, :, h0:h1], k[:, :, h0 // 4:h1 // 4], v[:, :, h0 // 4:h1 // 4]))
+        for h0, h1 in ((0, 16), (16, 32), (8, 12)))
+    K6.launches = before
+    log(f"[phase11a] K6 against its plain version over {len(cases)} cases: max|do| "
+        f"{worst:.3e}, max err / tolerance {worst_ratio:.3f}; two launches bit-identical "
+        f"{rep}; a batch of 8 equals each sequence alone {alone}; head slices (TP 2 "
+        f"ranks' 16 / 4 heads, 4 heads) equal the full launch's {sliced} "
+        f"({time.time() - t0:.1f} s)")
+    assert rep and alone and sliced, (rep, alone, sliced)
+    k6["max_abs_err"] = worst
+
+
+def phase11b_k6_timing(dev, k6: dict, shapes=K6_SHAPES, time_it=None) -> None:
+    """K6 a launch at the main paths' shapes beside its bound (bf16
+    tensor-core operations against q, k, v and o's bytes), its plain
+    version and PyTorch's SDPA on the same values (GQA heads expanded and
+    the (b, h, s, d) layout made outside the timed calls): the yardstick
+    only, never on the path.  The kernels line takes the calibration batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from tgq_torch.kernels import causal_attention as K6
+
+    time_it = time_it or cuda_ms
+    t0 = time.time()
+    before = K6.launches
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for label, b, s, h, kv, d in shapes:
+        q, k, v = k6_inputs(gen, dev, b, s, h, kv, d)
+        ms = time_it(lambda: K6.flash_causal_attention(q, k, v), reps=10)
+        plain_ms = time_it(lambda: K6.causal_attention_plain(q, k, v), reps=2)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+        lib_ms = time_it(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=1.0 / math.sqrt(d)), reps=10)
+        flops = 4.0 * d * h * b * s * (s + 1) / 2
+        b_ms, b_by = bound_ms(2.0 * (2 * h + 2 * kv) * b * s * d, flops, BF16_FLOP_PER_S)
+        log(f"[phase11b] K6 {label} ({b}, {s}, {h}/{kv}, {d}): {ms:.4f} ms a launch, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s; bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of "
+            f"it); plain {plain_ms:.3f} ms; SDPA {lib_ms:.4f} ms (K6 / SDPA {ms / lib_ms:.2f})")
+        if label == shapes[0][0]:
+            k6.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    K6.launches = before
+    log(f"[phase11b] K6 timing {time.time() - t0:.1f} s; {card_line()}")
+
+
+def phase11d_clis(dev, counts: dict, tiny_steps: int = 300, tr_n: int = 512) -> None:
+    """Slice 9's CLIs on the card at small settings, each with the launch
+    counters set to 0 just before it and read just after: one
+    ``trunc_regimes`` cell (K2), ``tiny_quality_bench`` at W4 with A16 and
+    A8 (K6, K1, K2, K3, K4; the trained PPL below vocab / 8 as the JAX
+    tests demand), ``boundary_bench`` (K3) and ``reproduce_baseline
+    --smoke`` (K6, K1, K2; every row OK)."""
+    from tgq_torch.cli import boundary_bench, reproduce_baseline, tiny_quality_bench, trunc_regimes
+    from tgq_torch.models import PRESETS
+
+    d = dev.type
+    t0 = time.time()
+    with counted(counts, "11d trunc_regimes", ("gptq_block",)):
+        res = quiet(trunc_regimes.run, trunc_regimes.build_parser().parse_args([
+            "--n", str(tr_n), "--m", str(tr_n // 2), "--decades", "6", "--n_tokens", "256",
+            "--bits", "4", "--seeds", "1", "--spectrum", "channel", "--device", d]))
+    log(f"[phase11d] trunc_regimes, one channel-spectrum cell (n {tr_n}, N 256, W4): {res} "
+        f"({time.time() - t0:.1f} s)")
+    assert res["cells"] == 1, res
+
+    t0 = time.time()
+    with counted(counts, "11d tiny_quality_bench", ("pchol_panel", "gptq_block", "dequant_matmul",
+                                                    "a8_matmul", "causal_attention")):
+        res = quiet(tiny_quality_bench.run, tiny_quality_bench.build_parser().parse_args([
+            "--steps", str(tiny_steps), "--bits", "4", "--methods", "pchol,rtn",
+            "--eps", "1e-6", "--a_bits", "16,8", "--device", d]))
+    vocab = PRESETS["tiny-qwen3"].vocab_size
+    table = {(r["method"], r["a_bits"]): r["ppl"] for r in res["rows"]}
+    log(f"[phase11d] tiny_quality_bench, tiny-qwen3 trained {tiny_steps} steps: base PPL "
+        f"{res['base_ppl']} (uniform {vocab}); W4 {table} ({time.time() - t0:.1f} s)")
+    assert res["base_ppl"] < vocab / 8, res["base_ppl"]
+    assert all(math.isfinite(r["ppl"]) for r in res["rows"]), res["rows"]
+
+    t0 = time.time()
+    with counted(counts, "11d boundary_bench", ("dequant_matmul",)):
+        res = quiet(boundary_bench.run, boundary_bench.build_parser().parse_args(["--device", d]))
+    log(f"[phase11d] boundary_bench (K3, t = {res['tokens']}, W{res['bits']}): per-boundary us "
+        f"{ {k: v['per_boundary_us'] for k, v in res['results'].items()} }; per split ms "
+        f"{ {k: v['per_split_ms'] for k, v in res['results'].items()} } "
+        f"({time.time() - t0:.1f} s); {card_line()}")
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp, \
+            counted(counts, "11d reproduce_baseline --smoke",
+                    ("pchol_panel", "gptq_block", "causal_attention")):
+        out = os.path.join(tmp, "smoke")
+        assert quiet(reproduce_baseline.main, ["--smoke", "--device", d, "--out", out]) == 0
+        with open(os.path.join(out, "final_benchmark.csv")) as f:
+            n_rows = sum(1 for line in f) - 1
+    log(f"[phase11d] reproduce_baseline --smoke: {n_rows} rows, diff PASS "
+        f"({time.time() - t0:.1f} s)")
+    assert n_rows == 11, n_rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (all by default)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -2634,6 +2879,9 @@ def main() -> int:
     k2 = {"name": "gptq_block", "route": "cuda",
           "source": "tgq_torch/kernels/csrc/gptq_block.cu",
           "replaces": "tgq/kernels/gptq_block.py:84", "library_ms": None}
+    k6 = {"name": "causal_attention", "route": "cuda",
+          "source": "tgq_torch/kernels/csrc/causal_attention.cu",
+          "replaces": "tgq/models/causal_lm.py:143", "library_ms": None}
     counts: dict[str, int] = {}
     k34_readings: dict = {}
     prof7c = p3 = serve7b = None
@@ -2642,9 +2890,11 @@ def main() -> int:
     if 2 in phases:
         phase2_gptq(dev, k2)
     if 3 in phases:
-        p3 = phase3_main_path(dev, counts)
+        with k6_counted(counts, "phase 3"):
+            p3 = phase3_main_path(dev, counts)
     if 4 in phases:
-        phase4_cli(dev)
+        with k6_counted(counts, "phase 4"):
+            phase4_cli(dev)
     if 5 in phases:
         k3_group_check(dev)
         phase5_matmul(dev, k3, k4, readings=k34_readings)
@@ -2653,7 +2903,8 @@ def main() -> int:
     if 7 in phases:
         *serve7b, prof7c = phase7_serving(dev, counts)
     if 8 in phases:
-        phase8_families(dev, counts)
+        with k6_counted(counts, "phase 8"):
+            phase8_families(dev, counts)
     if 9 in phases:
         # depth cuts that make room for phase 10 (PERF.md section 4): the
         # soak at 256 requests, 9b's serve runs at 12 of 36 layers
@@ -2661,7 +2912,13 @@ def main() -> int:
                       soak_args=("--n_requests", "256"))
     if 10 in phases:
         phase10_parallel(dev, counts, k5, p3, serve7b)
-    kernels = [k1, k2, k3, k4, k5]
+    if 11 in phases:
+        t11 = time.time()
+        phase11a_k6_check(dev, k6)
+        phase11b_k6_timing(dev, k6)
+        phase11d_clis(dev, counts)
+        log(f"[phase11] K6 and the slice-9 CLIs: {time.time() - t11:.1f} s")
+    kernels = [k1, k2, k3, k4, k5, k6]
     for k in kernels:
         k["launches"] = counts.get(k["name"], 0)
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):

@@ -32,10 +32,28 @@ def test_no_jax_or_tgq_imports():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 58  # every module was imported
+    assert int(out.stdout.split()[0]) >= 65  # every module was imported
     assert "tgq_torch._native" in _walk_names()  # the allocator's loader is covered
     assert {"tgq_torch.parallel.mesh", "tgq_torch.parallel.launch",
             "tgq_torch.parallel.dryrun"} <= _walk_names()  # and the parallel package
+    assert {"tgq_torch.kernels.causal_attention", "tgq_torch.calib.tiny_train",
+            "tgq_torch.cli.trunc_regimes", "tgq_torch.cli.tiny_quality_bench",
+            "tgq_torch.cli.boundary_bench", "tgq_torch.cli.reproduce_baseline",
+            "tgq_torch.cli.diff_baseline"} <= _walk_names()  # and slice 9's modules
+
+
+def test_no_library_attention_in_the_port():
+    """Causal attention is K6, the port's own kernel: no file of the
+    package calls PyTorch's fused attention (chip_smoke.py times it as a
+    yardstick only)."""
+    named = []
+    for root, _, files in os.walk(os.path.join(REPO, "tgq_torch")):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh", ".cc")):
+                with open(os.path.join(root, name), encoding="utf-8") as f:
+                    if "scaled_dot_product_attention" in f.read():
+                        named.append(os.path.join(root, name))
+    assert not named, named
 
 
 def _walk_names() -> set:
@@ -77,6 +95,18 @@ def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+@pytest.mark.parametrize("cli", ["trunc_regimes", "tiny_quality_bench", "boundary_bench",
+                                 "reproduce_baseline"])
+def test_analysis_clis_default_to_cuda(cli, tmp_path):
+    _no_cuda()
+    import importlib
+
+    mod = importlib.import_module(f"tgq_torch.cli.{cli}")
+    argv = {"reproduce_baseline": ["--smoke", "--out", str(tmp_path / "o")]}.get(cli, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
 
 
 def test_serving_entry_points_default_to_cuda():

@@ -157,6 +157,36 @@ def test_extreme_spectrum_stays_finite(rng):
     assert torch.isfinite(wq).all()
 
 
+def test_f32_breakdown_builds_in_f64_at_the_same_rank():
+    """Where the f32 factor build breaks down, the port builds the rank
+    the rule chose in f64 before the JAX package's ladder; the JAX package
+    escalates the numerical-rank guard instead, and its truncated solve then
+    lands above RTN.  The 5-decade spectrum of
+    test_extreme_spectrum_stays_finite, at its first seed."""
+    rng = np.random.default_rng(0)
+    d = 256
+    u, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    s = 10.0 ** (-5 * np.arange(d) / d)
+    x = ((rng.normal(size=(4096, d)) * s) @ u.T).astype(np.float32)
+    h = hessian_from_activations(torch.from_numpy(x))
+    lt, perm, dh, ph = tp._sweep(h)
+    rule = tp._rank_f64(dh, ph, 1e-6, 1e-6)
+    assert not torch.isfinite(tp._pchol_factors(lt, perm, rule)[0]).all()  # f32 breaks down
+    f = tp.pchol_factor(h, eps=1e-6)
+    fj = jp.pchol_factor(jnp.asarray(h.numpy()), eps=1e-6)
+    assert f.rank == rule and torch.isfinite(f.r_full).all() and fj.rank < rule, (f.rank, fj.rank)
+    w = torch.from_numpy(rng.normal(size=(64, d)).astype(np.float32))
+    spec, c, w64 = QuantSpec(bits=3, group_size=128), u * s[None, :], w.double().numpy()
+
+    def err(wq):
+        return np.linalg.norm((w64 - wq.double().numpy()) @ c) / np.linalg.norm(w64 @ c)
+
+    e_port = err(quantize_weight(w, f, spec, with_error=False).w_q)
+    e_jax = err(quantize_weight(w, fj, spec, with_error=False).w_q)
+    e_rtn = err(fake_quantize(w, spec))
+    assert e_port < e_rtn < e_jax, (e_port, e_rtn, e_jax)
+
+
 def test_pchol_zero_hessian_safe():
     f = tp.pchol_factor(torch.zeros((16, 16)), eps=1e-6)
     assert torch.isfinite(f.r_full).all() and f.rank >= 1

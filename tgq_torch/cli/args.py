@@ -63,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["f64", "f32"], help="Factorization precision (eigh mode)")
     t.add_argument("--attn_impl", type=str, default="auto",
                    choices=["auto", "flash", "naive"],
-                   help="Attention: flash = PyTorch SDPA, naive = plain softmax")
+                   help="Attention: auto / flash = the causal flash-attention kernel "
+                        "(its plain version on the CPU), naive = plain f32 softmax")
     t.add_argument("--block_size", type=int, default=256,
                    help="GPTQ column block size")
     t.add_argument("--no_pack", action="store_true",

@@ -232,19 +232,20 @@ def run(args) -> dict:
 
     from tgq_torch.utils.profiling import device_trace
 
+    from tgq_torch.kernels import causal_attention as K6
     from tgq_torch.kernels import dequant_matmul as KD
     from tgq_torch.kernels import paged_attention as K5
 
     stats0 = pmesh.collective_totals()
-    launches0 = (KD.launches, KD.launches_a8, K5.launches)
+    launches0 = (KD.launches, KD.launches_a8, K5.launches, K6.launches)
     agree = (lambda n: n) if mesh is None else (lambda n: pmesh.broadcast_int(n, mesh))
     timing = pmesh.time_collectives() if mesh is not None and args.time_collectives \
         else contextlib.nullcontext()
     with device_trace(args.profile_dir, cuda=device.type == "cuda"), timing:
         reqs, wall = _measured_run(eng, prompts, args.arrival_rate, rng, sync, agree)
     launches = {name: now - then for name, now, then in zip(
-        ("dequant_matmul", "a8_matmul", "paged_attention"),
-        (KD.launches, KD.launches_a8, K5.launches), launches0)}
+        ("dequant_matmul", "a8_matmul", "paged_attention", "causal_attention"),
+        (KD.launches, KD.launches_a8, K5.launches, K6.launches), launches0)}
     parallel = None
     if mesh is not None:
         phases = {}

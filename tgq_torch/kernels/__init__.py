@@ -8,6 +8,9 @@
   (``csrc/dequant_matmul.cu``; TPU original ``tgq/kernels/dequant_matmul.py``).
 - ``paged_attention`` — paged decode attention K5
   (``csrc/paged_attention.cu``; TPU original ``tgq/kernels/paged_attention.py``).
+- ``causal_attention`` — causal flash attention K6 of whole sequences
+  (``csrc/causal_attention.cu``; TPU original: the upstream Pallas op that
+  ``tgq/models/causal_lm.py::_flash_causal_attention`` calls).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors, and counts its launches in a module-level

@@ -1,0 +1,102 @@
+"""Causal flash attention K6: CUDA kernel and plain version.
+
+Port of the attention behind ``tgq/models/causal_lm.py::_flash_causal_attention``
+(the upstream Pallas TPU op ``jax.experimental.pallas.ops.tpu.flash_attention``,
+forward body ``_flash_attention_kernel_single_batch``).  It is the attention
+of every whole-sequence forward: calibration, strided perplexity, KV
+equalizer calibration, prefill and the GPT-2 / OPT families.
+``flash_causal_attention`` launches ``csrc/causal_attention.cu`` for CUDA
+tensors and runs ``causal_attention_plain`` for CPU tensors.
+
+Layout (b, s, h, d) for q and (b, s, kv, d) for k and v, h a multiple of
+kv (GQA: query head i reads kv head i // (h // kv)).  The kernel rounds the
+probabilities to bf16 before P·V, as the TPU body does; the plain version
+keeps them in f32.  So the two differ by at most 2^-8 (bf16's relative
+rounding) of Σ_j p_ij·|v_j| per element, plus the output's own bf16
+rounding: :func:`tolerance` states that bound.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from tgq_torch.kernels import _build
+
+launches = 0  # kernel launches of flash_causal_attention (CUDA only)
+HEAD_DIMS = (16, 64, 128)  # the kernel's template instances
+
+
+def causal_attention_plain(q, k, v, sm_scale: float | None = None):
+    """Masked softmax attention in f32 (mask value -1e30); output in q's
+    dtype.  q: (b, s, h, d); k, v: (b, s, kv, d).  Returns (b, s, h, d)."""
+    b, s, h, d = q.shape
+    rep = h // k.shape[2]
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+    logits = logits.masked_fill(~mask[None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def tolerance(q, k, v, ref, sm_scale: float | None = None):
+    """Per-element bound on |K6 - plain| (f32, ref's shape): 2^-8·Σ_j p_ij·|v_j|
+    for the bf16 probabilities (relative rounding error at most 2^-8, at
+    whatever running max they are taken), a 2^-12 share of the same sum
+    for f32 sums in another order, and 2 bf16 ulps of the reference element
+    for the two outputs' own roundings."""
+    mag = causal_attention_plain(q.float(), k.float(), v.float().abs(), sm_scale)
+    ulp = torch.ldexp(torch.ones_like(mag),
+                      torch.frexp(ref.float().abs().clamp_min(2.0 ** -126))[1] - 8)
+    return (2.0 ** -8 + 2.0 ** -12) * mag + 2 * ulp
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"causal attention shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d or kv == 0 or h % kv != 0:
+        raise ValueError(f"causal attention: q {tuple(q.shape)} against k/v {tuple(k.shape)} "
+                         f"(b, s, d equal; heads a multiple of kv heads)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"causal attention: head_dim {d} (the kernel takes {HEAD_DIMS})")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise TypeError(f"causal attention takes bfloat16 q, k, v "
+                        f"(got {q.dtype}, {k.dtype}, {v.dtype})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"causal attention: {name} needs a contiguous feature axis and "
+                             f"16-byte aligned rows (strides {t.stride()})")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("causal attention: tensors on different devices")
+
+
+def flash_causal_attention(q, k, v, sm_scale: float | None = None):
+    """Causal attention with the contract of :func:`causal_attention_plain`
+    (up to :func:`tolerance`).  CUDA tensors launch the kernel; CPU tensors
+    run the plain version.  Takes any sequence length >= 0."""
+    global launches
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return causal_attention_plain(q, k, v, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"causal attention: unsupported device {q.device}")
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.lib()
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    err = lib.tgq_causal_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        b, s, h, k.shape[2], d, float(scale), dev,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "causal attention launch")
+    launches += 1
+    return out

@@ -16,19 +16,18 @@ masked lookup and an all-reduce, and the vocab-split head's logits are
 gathered.
 
 Numerics follow the JAX package: bf16 weights and activations, f32 for
-RMSNorm, rope and the naive attention's softmax.  Attention on CUDA is
-``torch.nn.functional.scaled_dot_product_attention`` (the JAX package
-calls the upstream Pallas flash-attention op there, which tgq did not
-write); on the CPU it is the plain masked softmax.
+RMSNorm, rope and the naive attention's softmax.  Causal attention
+("auto" / "flash") is K6 (``tgq_torch.kernels.causal_attention``): the
+CUDA kernel for CUDA tensors, where the JAX package calls the upstream
+Pallas flash-attention op on the TPU, and its plain masked f32 softmax
+for CPU tensors; "naive" is the plain version on either device.
 """
 from __future__ import annotations
 
-import math
-
 import torch
-import torch.nn.functional as F
 
 from tgq_torch.core.packing import PackedLinear
+from tgq_torch.kernels.causal_attention import causal_attention_plain, flash_causal_attention
 from tgq_torch.kernels.dequant_matmul import glu_act, quantized_matmul
 from tgq_torch.models.config import ModelConfig
 from tgq_torch.parallel.mesh import all_gather_last, all_reduce, quantized_matmul_tp, tp_mesh
@@ -125,38 +124,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # --------------------------------------------------------------- attention
 
 
-def _naive_causal_attention(q, k, v):
-    """q: (b, s, h, d); k, v: (b, s, kv, d).  Returns (b, s, h, d)."""
-    b, s, h, d = q.shape
-    rep = h // k.shape[2]
-    k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
-    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
-    logits = logits.masked_fill(~mask[None, None], -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
-    return out.to(q.dtype)
-
-
-def _sdpa_causal_attention(q, k, v):
-    """PyTorch's fused attention (GQA heads expanded as the JAX flash
-    path does), in the (b, s, h, d) layout of the naive version."""
-    rep = q.shape[2] // k.shape[2]
-    k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
-    out = F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, scale=1.0 / (q.shape[-1] ** 0.5))
-    return out.transpose(1, 2)
-
-
 def causal_attention(q, k, v, impl: str = "auto"):
-    if impl == "auto":
-        impl = "flash" if q.is_cuda else "naive"
-    if impl == "flash":
-        return _sdpa_causal_attention(q, k, v)
-    return _naive_causal_attention(q, k, v)
+    """q: (b, s, h, d); k, v: (b, s, kv, d).  Returns (b, s, h, d).
+    "auto" and "flash" take K6 (its kernel on CUDA, its plain version on
+    the CPU); "naive" the plain masked f32 softmax on either device."""
+    if impl in ("auto", "flash"):
+        return flash_causal_attention(q, k, v)
+    if impl == "naive":
+        return causal_attention_plain(q, k, v)
+    raise ValueError(f"unknown attention impl {impl!r}")
 
 
 # ------------------------------------------------------------ decoder layer

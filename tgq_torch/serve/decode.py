@@ -16,7 +16,7 @@ the ``(n_steps, slots)`` int32 block leaves it.  Greedy sampling is
 is Gumbel-max on noise drawn by ``_uniform`` from a ``torch.Generator``:
 the noise is not JAX's threefry stream, but given the same noise the two
 samplers pick the same tokens.  Prefill attention is ``causal_attention``
-(SDPA on CUDA, the naive f32 softmax on the CPU) over the prompt itself.
+(K6 on CUDA, its plain f32 softmax on the CPU) over the prompt itself.
 
 Under a tensor-parallel mesh each rank runs these functions on its own
 shards and kv heads (``tgq_torch.parallel``; each rank holds ``kvh/tp``

@@ -13,7 +13,8 @@ The sweep runs panels of ``panel`` greedy steps (``pchol_panel``: the
 CUDA kernel on the card, its plain version on the CPU) and folds each
 finished panel into the Schur complement with one exact-f32 GEMM.  The
 factor build then needs only Cholesky factorizations, a Cholesky solve
-and GEMMs, run in f32 on the device (``_pchol_factors``).  The JAX package's
+and GEMMs, run in f32 on the device (``_pchol_factors``; in f64 where the
+f32 build breaks down, before the JAX package's failure ladder).  The JAX package's
 ``blocked_linalg`` exists to bound XLA's temporaries on a 16 GB TPU; here
 ``torch.linalg`` does the same work directly.
 """
@@ -121,6 +122,10 @@ def _pchol_factors(lt: torch.Tensor, perm: torch.Tensor, rank: int,
     return r_full, (a if want_rx else None)
 
 
+def _finite(r_full, r_x) -> bool:
+    return bool(torch.isfinite(r_full).all()) and (r_x is None or bool(torch.isfinite(r_x).all()))
+
+
 def pchol_factor(h, eps: float = 1e-6, panel: int = 128, pivot_rtol: float = None,
                  want_rx: bool = True, force_finite_check: bool = False,
                  backend: str = "kernel") -> FactorResult:
@@ -151,16 +156,25 @@ def pchol_factor(h, eps: float = 1e-6, panel: int = 128, pivot_rtol: float = Non
                             rank=1, r_x=torch.zeros_like(eye))
     rank = _rank_f64(dhist, pivhist, eps, pivot_rtol)
     r_full, r_x = _pchol_factors(lt, perm, rank, want_rx=want_rx)
-    # f32 breakdown guard: on extreme spectra the build can go NaN.
-    # Escalate the numerical-rank guard once, then fall back to the host
-    # f64 eigh path (tgq/solver/pchol.py:408-437).
+    # f32 breakdown guard: on extreme spectra the build can go NaN.  The
+    # port first builds the same rank in f64 on h's device (a rung the JAX
+    # package lacks); then, as the JAX package does, it escalates the
+    # numerical-rank guard once and falls back to the host f64 eigh path
+    # (tgq/solver/pchol.py:408-437).
     pivot_ratio = p0 / max(float(pivhist[rank - 1]), 1e-300)
     if force_finite_check or pivot_ratio > 1e4:
-        finite = bool(torch.isfinite(r_full).all()) and (
-            r_x is None or bool(torch.isfinite(r_x).all()))
-        if not finite:
-            logger.warning("pchol factor build not finite at rank %d (pivot "
-                           "ratio %.3g, pivot_rtol %g); escalating", rank,
+        if not _finite(r_full, r_x):
+            r64, rx64 = _pchol_factors(lt.double(), perm, rank, want_rx=want_rx)
+            r_full, r_x = r64.float(), (None if rx64 is None else rx64.float())
+            del r64, rx64
+            finite64 = _finite(r_full, r_x)
+            logger.warning("pchol f32 factor build not finite at rank %d of n = %d (pivot "
+                           "ratio %.3g); the f64 build is %s", rank, n, pivot_ratio,
+                           "finite" if finite64 else "not finite either")
+            if finite64:
+                return FactorResult(r_full=r_full, perm=perm, rank=rank, r_x=r_x)
+            logger.warning("pchol factor build not finite at rank %d of n = %d "
+                           "(pivot ratio %.3g, pivot_rtol %g); escalating", rank, n,
                            pivot_ratio, pivot_rtol)
             if pivot_rtol < 1e-3:
                 return pchol_factor(h, eps=eps, panel=panel, pivot_rtol=1e-3,
