@@ -102,14 +102,18 @@ Phases:
      the phase.
  11. K6, the causal flash attention of every whole-sequence forward
      (calibration, PPL, equalizer calibration, prefill, GPT-2 / OPT): (a)
-     against its plain version within ``causal_attention.tolerance`` at
-     lengths 1, 7, 64, 100, 129, 2047, 2048, head_dim 16 / 64 / 128, GQA
-     groups 1 / 4 / 8, Qwen3-8B's 32 / 8 heads and its TP 2 rank's 16 / 4,
+     the build's ptxas report shows K6's wgmma kernels free of spills and
+     of serialised wgmmas; K6 against its plain version within
+     ``causal_attention.tolerance`` at lengths 1, 7, 64, 65, 100, 127-129,
+     255-257, 2047, 2048 (the 64- and 128-row tile edges), head_dim 16 / 64
+     / 128, GQA groups 1 / 4 / 8, Qwen3-8B's 32 / 8 heads and its TP 2
+     rank's 16 / 4, GPT-2's fused q/k/v views, an OPT-1.3b TP 2 head slice,
      a peaked softmax; two launches, a batch of 8 and each sequence alone,
      head slices and the full launch, all bit for bit; (b) timed at the
-     main paths' shapes beside its bound, its plain version and SDPA (the
-     yardstick only); (c) K6's launch counter is set to 0 before and read
-     after phases 3, 4, 7b, 8 and 10 (on each rank), > 0 on each; (d)
+     main paths' shapes beside its bound, its plain version, SDPA (the
+     yardstick only) and the first design's reading; (c) K6's launch
+     counter is set to 0 before and read after phases 3, 4, 7b, 8 and 10
+     (on each rank), > 0 on each; (d)
      ``trunc_regimes`` (one cell), ``tiny_quality_bench`` (300 steps, W4,
      A16 and A8), ``boundary_bench`` and ``reproduce_baseline --smoke`` on
      the card, each with the counters read around it.
@@ -2665,6 +2669,13 @@ K6_SHAPES = (  # (label, batch, tokens, q heads, kv heads, head_dim) of the main
 )
 
 
+# K6's first design (mma.sync, 64-row tiles, cp.async) at K6_SHAPES, ms a
+# launch on an NVIDIA H100 80GB HBM3 at 700 W, read by phase 11b
+K6_FIRST_DESIGN_MS = {"calibration batch": 1.4159, "PPL window batch": 0.7361,
+                      "GPT-2 calibration batch": 0.0921, "OPT-1.3b calibration batch": 0.7395,
+                      "prefill wave 16 x 128": 0.0399}
+
+
 @contextlib.contextmanager
 def k6_counted(counts: dict, label: str):
     """K6's launch counter set to 0 just before a main path and read just
@@ -2696,37 +2707,93 @@ def k6_inputs(gen, dev, b: int, s: int, h: int, kv: int, d: int, q_scale: float 
     return draw(h, q_scale), draw(kv), draw(kv)
 
 
-def phase11a_k6_check(dev, k6: dict) -> None:
+def k6_ptxas(report: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes, wgmma
+    serialisation warnings)} of K6's wgmma kernels in a ptxas -v report."""
+    import re
+
+    out, name = {}, None
+    serial = {}
+    for line in report.splitlines():
+        m = re.search(r"wgmma.mma_async instructions are serialized.*'(\w+)'", line)
+        if m:
+            serial[m.group(1)] = serial.get(m.group(1), 0) + 1
+            continue
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if "causal_attention_wgmma" in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name] = (None, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name] = (int(m.group(1)),) + out[name][1:]
+            name = None
+    return {k: v + (serial.get(k, 0),) for k, v in out.items()}
+
+
+def phase11a_k6_check(dev, k6: dict, report: str | None = None) -> None:
     """K6 against its plain version: every element within
     ``causal_attention.tolerance`` (2^-8 + 2^-12 of the row's Σ p·|v| for the
     bf16 probabilities and the f32 order, and 2 bf16 ulps for the outputs'
-    roundings); then two launches, a batch and each sequence alone, a head
-    slice and the full launch, bit for bit."""
+    roundings), over lengths at the 64- and 128-row tile edges, every head
+    size, GQA group and strided view the main paths give it; then two
+    launches, a batch and each sequence alone, a head slice and the full
+    launch, bit for bit.  ``report`` (ptxas -v of the build) must show the
+    wgmma kernels free of spills and of serialised wgmmas."""
     import torch
 
+    from tgq_torch.kernels import _build
     from tgq_torch.kernels import causal_attention as K6
 
     t0 = time.time()
+    regs = k6_ptxas(_build.ptxas_report() if report is None else report)
+    log(f"[phase11a] K6 wgmma kernels (registers, spill store / load bytes, wgmma "
+        f"serialisation warnings): {regs}")
+    assert len(regs) == 2 and all(r[1:] == (0, 0, 0) for r in regs.values()), regs
     before = K6.launches
     gen = torch.Generator(device=dev).manual_seed(11)
-    cases = [(1, s, 32, 8, 128, 1.0) for s in (1, 7, 64, 100, 129, 2047, 2048)]
+    cases = [(1, s, 32, 8, 128, 1.0)
+             for s in (1, 7, 64, 100, 127, 128, 129, 255, 256, 257, 2047, 2048)]
     cases += [(2, 129, 4, 2, 16, 1.0), (2, 1000, 4, 2, 16, 1.0),     # tiny-qwen3's heads
               (2, 1024, 12, 12, 64, 1.0), (1, 2048, 32, 32, 64, 1.0),  # GPT-2, OPT-1.3b
+              (2, 65, 12, 12, 64, 1.0),                                 # half a query tile
               (2, 300, 8, 8, 128, 1.0), (2, 300, 32, 4, 128, 1.0),     # GQA groups 1 and 8
               (2, 2048, 16, 4, 128, 1.0),                               # Qwen3-8B at TP 2
               (2, 777, 32, 8, 128, 8.0), (2, 200, 12, 12, 64, 8.0)]    # peaked softmax
+
+    def views(b, s, h, d):
+        """GPT-2's fused q/k/v: three (b, s, h, d) views of one (b, s, 3·h·d)
+        tensor (row stride 3·h·d)."""
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+        return tuple(x.view(b, s, h, d) for x in qkv.split(h * d, dim=-1))
+
+    def opt_tp_slice():
+        """OPT-1.3b's second TP 2 rank: heads 16-31 of q, k and v."""
+        q, k, v = k6_inputs(gen, dev, 2, 2048, 32, 32, 64)
+        return q[:, :, 16:], k[:, :, 16:], v[:, :, 16:]
+
+    inputs = [(f"b {b} s {s} heads {h}/{kv} d {d} q x{qs:g}",
+               lambda b=b, s=s, h=h, kv=kv, d=d, qs=qs: k6_inputs(gen, dev, b, s, h, kv, d, qs))
+              for b, s, h, kv, d, qs in cases]
+    inputs += [("GPT-2 fused q/k/v views b 2 s 1024 heads 12 d 64",
+                lambda: views(2, 1024, 12, 64)),
+               ("GPT-2 fused q/k/v views b 2 s 129 heads 12 d 64", lambda: views(2, 129, 12, 64)),
+               ("OPT-1.3b TP 2 head slice 16:32 b 2 s 2048 d 64", opt_tp_slice)]
     worst, worst_ratio = 0.0, 0.0
-    for b, s, h, kv, d, qs in cases:
-        q, k, v = k6_inputs(gen, dev, b, s, h, kv, d, qs)
+    for label, make in inputs:
+        q, k, v = make()
         out = K6.flash_causal_attention(q, k, v)
         ref = K6.causal_attention_plain(q, k, v)
         err = (out.float() - ref.float()).abs()
         ratio = float((err / K6.tolerance(q, k, v, ref)).max())
         worst, worst_ratio = max(worst, float(err.max())), max(worst_ratio, ratio)
-        log(f"[phase11a] K6 b {b} s {s} heads {h}/{kv} d {d} q x{qs:g}: max|do| "
-            f"{float(err.max()):.3e} (max|o| {float(ref.float().abs().max()):.3f}), "
-            f"max err / tolerance {ratio:.3f}")
-        assert torch.isfinite(out.float()).all() and ratio <= 1.0, (b, s, h, kv, d, ratio)
+        log(f"[phase11a] K6 {label}: max|do| {float(err.max()):.3e} (max|o| "
+            f"{float(ref.float().abs().max()):.3f}), max err / tolerance {ratio:.3f}")
+        assert torch.isfinite(out.float()).all() and ratio <= 1.0, (label, ratio)
         del q, k, v, out, ref, err
 
     q, k, v = k6_inputs(gen, dev, 2, 2048, 32, 8, 128)
@@ -2741,7 +2808,7 @@ def phase11a_k6_check(dev, k6: dict) -> None:
         q[:, :, h0:h1], k[:, :, h0 // 4:h1 // 4], v[:, :, h0 // 4:h1 // 4]))
         for h0, h1 in ((0, 16), (16, 32), (8, 12)))
     K6.launches = before
-    log(f"[phase11a] K6 against its plain version over {len(cases)} cases: max|do| "
+    log(f"[phase11a] K6 against its plain version over {len(inputs)} cases: max|do| "
         f"{worst:.3e}, max err / tolerance {worst_ratio:.3f}; two launches bit-identical "
         f"{rep}; a batch of 8 equals each sequence alone {alone}; head slices (TP 2 "
         f"ranks' 16 / 4 heads, 4 heads) equal the full launch's {sliced} "
@@ -2776,9 +2843,11 @@ def phase11b_k6_timing(dev, k6: dict, shapes=K6_SHAPES, time_it=None) -> None:
             qt, kt, vt, is_causal=True, scale=1.0 / math.sqrt(d)), reps=10)
         flops = 4.0 * d * h * b * s * (s + 1) / 2
         b_ms, b_by = bound_ms(2.0 * (2 * h + 2 * kv) * b * s * d, flops, BF16_FLOP_PER_S)
+        first = K6_FIRST_DESIGN_MS[label]
         log(f"[phase11b] K6 {label} ({b}, {s}, {h}/{kv}, {d}): {ms:.4f} ms a launch, "
             f"{flops / ms / 1e9:.1f} TFLOP/s; bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of "
-            f"it); plain {plain_ms:.3f} ms; SDPA {lib_ms:.4f} ms (K6 / SDPA {ms / lib_ms:.2f})")
+            f"it); plain {plain_ms:.3f} ms; SDPA {lib_ms:.4f} ms (K6 / SDPA {ms / lib_ms:.2f}); "
+            f"first design {first:.4f} ms (K6 / first {ms / first:.2f})")
         if label == shapes[0][0]:
             k6.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del q, k, v, qt, kt, vt

@@ -78,44 +78,78 @@ def test_ragged_lengths_match_jax_naive(s):
         assert err <= float(ref.float().abs().max()) * 2.0 ** -7, (impl, err)
 
 
-def _emulate_k6(q, k, v, skip_diagonal_mask=False):
-    """K6's arithmetic in torch (one 64-key tile at a time, log2-domain
-    online softmax, probabilities rounded to bf16 before P·V, one division
-    at the end) — the design the CUDA kernel implements, here to show that
-    the tolerance holds it and catches a planted fault."""
+def _emulate_k6(q, k, v, fault=None):
+    """K6's arithmetic at head_dim 64 / 128 in torch, the design the CUDA
+    kernel implements: 128-row query tiles in two 64-row halves (one
+    consumer warpgroup each), 128-key tiles up to the diagonal, the first
+    half's diagonal tile over its first 64 keys only, log2-domain online
+    softmax over the running max of the raw scores (p = 2^(s·c - m·c), c =
+    sm_scale·log2 e), probabilities rounded to bf16 at the running max
+    before P·V, one division at the end.  ``fault`` plants a defect: "skip_second_half"
+    (the diagonal skip applied to rows 64-127 too, so they lose keys
+    64-127 of their tile) or "no_mask" (the diagonal tile unmasked)."""
     b, s, h, d = q.shape
     rep = h // k.shape[2]
     kf = k.float().repeat_interleave(rep, dim=2)
     vf = v.float().repeat_interleave(rep, dim=2)
     qf = q.float()
     scale = (1.0 / math.sqrt(d)) * math.log2(math.e)
-    m = torch.full((b, h, s), -math.inf)
-    ell = torch.zeros((b, h, s))
-    acc = torch.zeros((b, h, s, d))
-    rows = torch.arange(s)
-    for t0 in range(0, s, 64):
-        keys = torch.arange(t0, min(t0 + 64, s))
-        sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, keys]) * scale
-        if not skip_diagonal_mask:
-            sc = sc.masked_fill(keys[None, :] > rows[:, None], -math.inf)
-        m_new = torch.maximum(m, sc.amax(dim=-1))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(sc - m_new[..., None])
-        ell = ell * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p.bfloat16().float(), vf[:, keys])
-        m = m_new
-    return (acc / ell[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+    out = torch.empty((b, h, s, d))
+    for t0 in range(0, s, 128):
+        for half in (0, 1):
+            if t0 + 64 * half >= s:
+                continue
+            rows = torch.arange(t0 + 64 * half, min(t0 + 64 * half + 64, s))
+            m = torch.full((b, h, len(rows)), -math.inf)
+            ell = torch.zeros((b, h, len(rows)))
+            acc = torch.zeros((b, h, len(rows), d))
+            for k0 in range(0, t0 + 128, 128):
+                diag = k0 == t0
+                skip = diag and (half == 0 or fault == "skip_second_half")
+                keys = torch.arange(k0, min(k0 + (64 if skip else 128), s))
+                sc = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows], kf[:, keys])
+                if diag and fault != "no_mask":
+                    sc = sc.masked_fill(keys[None, :] > rows[:, None], -math.inf)
+                m_new = torch.maximum(m, sc.amax(dim=-1))
+                alpha = torch.exp2((m - m_new) * scale)
+                p = torch.exp2(sc * scale - (m_new * scale)[..., None])
+                ell = ell * alpha + p.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bhqk,bkhd->bhqd", p.bfloat16().float(), vf[:, keys])
+                m = m_new
+            out[:, :, rows] = acc / ell[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
-def test_kernel_design_within_tolerance_and_fault_caught():
-    _, tx = _inputs(5, 2, 150, 8, 2, 64, q_scale=3.0)
+@pytest.mark.parametrize("s", [1, 65, 127, 129, 300])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_design_within_tolerance_and_fault_caught(s, d):
+    _, tx = _inputs(5 + s + d, 2, s, 8, 2, d, q_scale=3.0)
     ref = K6.causal_attention_plain(*tx)
     tol = K6.tolerance(*tx, ref)
-    good = ((_emulate_k6(*tx).float() - ref.float()).abs() / tol).max()
-    bad = ((_emulate_k6(*tx, skip_diagonal_mask=True).float() - ref.float()).abs() / tol).max()
-    assert good <= 1.0, float(good)
-    assert bad > 10.0, float(bad)
+
+    def ratio(out):
+        return float(((out.float() - ref.float()).abs() / tol).max())
+
+    good = ratio(_emulate_k6(*tx))
+    assert good <= 1.0, good
+    # each fault changes the result wherever it changes the keys a row sees
+    if s > 64:
+        bad = ratio(_emulate_k6(*tx, fault="skip_second_half"))
+        assert bad > 10.0, bad
+    if s > 1:
+        bad = ratio(_emulate_k6(*tx, fault="no_mask"))
+        assert bad > 10.0, bad
+
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_design_matches_tpu_kernel_interpreted(s, d):
+    jx, tx = _inputs(s + d + 7, 1, s, 4, 1, d)
+    with pltpu.force_tpu_interpret_mode():
+        ref = _as_torch(jcl._flash_causal_attention(*jx))
+    ratio, err = _ratio(_emulate_k6(*tx), ref, tx)
+    assert ratio <= 1.0, (ratio, err)
 
 
 def test_wrapper_checks_raise():
@@ -136,6 +170,8 @@ def test_wrapper_checks_raise():
         K6.flash_causal_attention(qt, k, v)
     with pytest.raises(ValueError, match="unknown attention impl"):
         causal_attention(q, k, v, impl="sdpa")
+    with pytest.raises(ValueError, match="sm_scale must be > 0"):
+        K6.flash_causal_attention(q, k, v, sm_scale=-0.125)
 
 
 def test_auto_on_cpu_never_launches_and_takes_strided_views():

@@ -8,6 +8,13 @@ equalizer calibration, prefill and the GPT-2 / OPT families.
 ``flash_causal_attention`` launches ``csrc/causal_attention.cu`` for CUDA
 tensors and runs ``causal_attention_plain`` for CPU tensors.
 
+At head_dim 64 and 128 the kernel is built for Hopper: persistent blocks,
+one an SM, in which a producer warpgroup loads 128-row tiles by TMA (a 4-D
+tensor map of q, k, v and o each, encoded at every launch from their
+strides) and two consumer warpgroups run both products on ``wgmma`` and
+store o by TMA; head_dim 16 keeps an ``mma.sync`` body.  A layout that
+TMA refuses raises; nothing falls back.
+
 Layout (b, s, h, d) for q and (b, s, kv, d) for k and v, h a multiple of
 kv (GQA: query head i reads kv head i // (h // kv)).  The kernel rounds the
 probabilities to bf16 before P·V, as the TPU body does; the plain version
@@ -77,12 +84,25 @@ def _check(q, k, v) -> None:
         raise ValueError("causal attention: tensors on different devices")
 
 
+def _launch_error(err: int) -> str:
+    """The C entry's code as a message: -(1000·t + r) is TMA's refusal of
+    tensor t's layout (1 q, 2 k, 3 v, 4 o) with the driver's CUresult r."""
+    if err < 0:
+        t, r = divmod(-err, 1000)
+        name = {1: "q", 2: "k", 3: "v", 4: "o"}.get(t, "?")
+        return f"causal attention: TMA refused the layout of {name} (CUresult {r})"
+    return f"causal attention launch: CUDA error {err}"
+
+
 def flash_causal_attention(q, k, v, sm_scale: float | None = None):
     """Causal attention with the contract of :func:`causal_attention_plain`
     (up to :func:`tolerance`).  CUDA tensors launch the kernel; CPU tensors
-    run the plain version.  Takes any sequence length >= 0."""
+    run the plain version.  Takes any sequence length >= 0 and a softmax
+    scale > 0 (the kernel takes the running max of the unscaled scores)."""
     global launches
     _check(q, k, v)
+    if sm_scale is not None and not sm_scale > 0:
+        raise ValueError(f"causal attention: sm_scale must be > 0 (got {sm_scale})")
     if q.device.type == "cpu":
         return causal_attention_plain(q, k, v, sm_scale)
     if q.device.type != "cuda":
@@ -97,6 +117,7 @@ def flash_causal_attention(q, k, v, sm_scale: float | None = None):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         b, s, h, k.shape[2], d, float(scale), dev,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "causal attention launch")
+    if err != 0:
+        raise RuntimeError(_launch_error(err))
     launches += 1
     return out

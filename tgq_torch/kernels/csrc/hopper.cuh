@@ -1,0 +1,358 @@
+// Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
+// mbarriers, TMA tile loads, wgmma (its fences, groups and shared-memory
+// descriptors for the 128-byte swizzle), register reallocation and named
+// barriers, and the host's encoding of a TMA tensor map.  PTX ISA names
+// throughout; see causal_attention.cu for how they fit together.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: no driver library is linked)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tgq {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ---- mbarriers (one 64-bit word of shared memory each)
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+// make the initialised barriers visible to the async proxy (TMA) and the block
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// one arrival that also announces `bytes` of transactions (a TMA load's size)
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// one arrival from the threads whose `pred` is true (predicated inside the
+// asm, so the caller's control flow stays uniform)
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+// wait until the phase of parity `parity` has completed: one asm loop, so
+// the compiler sees no divergent branch.  A wait that polls 2^28 times
+// (seconds) traps, so a broken protocol fails the launch instead of hanging
+// the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p_done, p_late;\n.reg .b32 n_poll;\nmov.b32 n_poll, 0;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p_done, [%0], %1;\n"
+      "@p_done bra LAB_DONE;\n"
+      "add.u32 n_poll, n_poll, 1;\n"
+      "setp.gt.u32 p_late, n_poll, 268435456;\n"
+      "@p_late trap;\n"
+      "bra LAB_WAIT;\n"
+      "LAB_DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// ---- TMA: fetch a tensor map (a kernel parameter) ahead of its first use
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- TMA: one box of a 4-D tensor map into shared memory, completing
+// its bytes on `bar`.  Coordinates innermost first, in elements; parts of
+// the box outside the tensor are filled with zeros (and still counted).
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- TMA: a box of shared memory into a 4-D tensor map's tensor (parts of
+// the box outside the tensor are not written), then wait until the copies
+// have read shared memory
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// make this thread's shared-memory writes visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// ---- register reallocation between warpgroups (all 128 threads execute it)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---- named barriers: `n` threads in all, some waiting (sync), some not (arrive)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---- wgmma
+
+// order earlier register and shared-memory accesses before the next wgmma
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+// close the wgmmas issued since the last commit into one group (maybe empty)
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N groups are pending (groups complete in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory matrix descriptor of an operand in the 128-byte swizzle
+// that TMA writes (rows of 128 bytes, 16-byte chunks XORed by row % 8, atoms
+// of 8 rows = 1024 bytes, 1024-byte aligned).  Offsets in bytes:
+//   K-major (rows of the operand along M or N, 64 K-elements a row):
+//     lbo unused (16), sbo = 1024 from one 8-row group to the next; the k16
+//     steps inside an atom advance the start address by 32 bytes.
+//   MN-major (rows along K, 64 M/N-elements a row): lbo = the distance to the
+//     next 64-element block along M/N, sbo = 1024 from one 8-row (8 K) group
+//     to the next.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// keep the compiler from moving accesses to wgmma accumulators across the
+// wgmma fences, commits and waits (an empty asm that "reads and writes" them)
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+  asm volatile(""
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+                 "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                 "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+                 "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+               :
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+  asm volatile(""
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+                 "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                 "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+                 "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+                 "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+                 "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+                 "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                 "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+               :
+               : "memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
+  asm volatile("" : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]) : : "memory");
+}
+
+// the four products K6 uses
+
+// D (64 x 64, f32) = A·B, plus D if `accumulate`: A (64 x 16) and B (64 x 16)
+// from shared memory, both K-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[N], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 128, f32) = A·B, plus D if `accumulate`: A (64 x 16) and B (128 x 16)
+// from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64, f32) = A·B, plus D if `accumulate`: A (64 x 16 bf16) in
+// registers, each warp's 16 rows as the mma.m16n8k16 A fragment; B (16 x 64)
+// from shared memory, MN-major (the transpose bit)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[N], const uint32_t (&a)[4], uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 128, f32) = A·B, plus D if `accumulate`: A (64 x 16 bf16) in
+// registers, each warp's 16 rows as the mma.m16n8k16 A fragment; B (16 x 128)
+// from shared memory, MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// ---- host: TMA tensor maps
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+__host__ inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map of a (B, S, heads, D) bf16 tensor with element strides (sb,
+// ss, sh) and a contiguous feature axis: dimensions (D, heads, S, B)
+// innermost first, boxes of 64 features x 1 head x `rows` rows x 1 batch,
+// the 128-byte swizzle; rows past S read as zeros.  The stride of a
+// dimension of size 1 is never used and is replaced by one that keeps the
+// strides increasing.  Returns the driver's CUresult (0 = encoded).
+__host__ inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int heads, int D,
+                                long sb, long ss, long sh, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  if (heads == 1) sh = D;
+  if (S == 1) ss = sh * heads;
+  if (B == 1) sb = ss * S;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+}  // namespace tgq
