@@ -6,7 +6,8 @@
     python3 chip_smoke.py --phases 0,8       # GPT-2 / OPT, HF checkpoints, resume
     python3 chip_smoke.py --phases 0,9       # equalizers, soak, harnesses, tables
     python3 chip_smoke.py --phases 0,10      # tensor and data parallelism (runs phase 3's
-                                             # sweep itself when phase 3 is not asked for)
+                                             # sweep itself when phase 3 is not asked for),
+                                             # GPT-2 / OPT / svd under the mesh (10e)
     python3 chip_smoke.py --phases 0,11      # K6 (causal flash attention), the slice-9 CLIs
 
 Phases:
@@ -98,8 +99,18 @@ Phases:
      (``--time_collectives``); (d)
      ``quantize_model(mesh=make_mesh(data=2, model=2))`` on 4 ranks at phase
      3's setting, held to phase 3's run (Gram error at most 2x, < 2 % of
-     q_proj's weights moved, PPL within 2 %).  A failure in any rank fails
-     the phase.
+     q_proj's weights moved, PPL within 2 %); (e) the same mesh sweep of
+     GPT-2 (12 layers) and OPT-1.3b (full width, 4 layers), and ``mode="svd"``
+     at GPT-2 width (1 layer) on it and on (data 4 x model 1), from HF
+     checkpoints written as phase 8 writes them, at phase 8's calibration
+     (32 sequences at the model's seqlen, W4 g128, eps 1e-6 energy), beside
+     single-rank sweeps of the same checkpoints: GPT-2's codes equal in
+     every layer, OPT-1.3b's layer-0 codes equal (q/k/v from the
+     replicated LayerNorm input, out_proj, fc1 and fc2 from the gathered
+     heads), under 2 % of any later layer's codes moved and its PPL within
+     2 %, every svd sketch bit-equal; the share of codes moved by layer,
+     s/layer and K1 / K2 / K6 launches by rank printed.  A failure in any
+     rank fails the phase.
  11. K6, the causal flash attention of every whole-sequence forward
      (calibration, PPL, equalizer calibration, prefill, GPT-2 / OPT): (a)
      the build's ptxas report shows K6's wgmma kernels free of spills and
@@ -1380,12 +1391,12 @@ def phase7_serving(dev, counts: dict, preset: str = "qwen3-8b", check_layers: in
 # width: the card read at most 1.006 at eps 1e-6 (PERF.md section 2)
 LOW_RANK_RTN_CAP = 1.05
 
-def write_hf_model(path: str, preset: str, dev, n_files: int = 1):
-    """A checkpoint in the published HF layout of ``preset`` with random
-    bf16 weights (seed 0), written by the port's safetensors writer; GPT-2
-    gets its f32 causal-mask buffers too.  ``n_files`` > 1 splits it into
-    that many shards with an index.  Returns (cfg, bytes, seconds of the
-    flatten and the write)."""
+def write_hf_model(path: str, preset: str, dev, n_files: int = 1, layers=None):
+    """A checkpoint in the published HF layout of ``preset`` (cut to
+    ``layers`` when given) with random bf16 weights (seed 0), written by
+    the port's safetensors writer; GPT-2 gets its f32 causal-mask buffers
+    too.  ``n_files`` > 1 splits it into that many shards with an index.
+    Returns (cfg, bytes, seconds of the flatten and the write)."""
     import torch
 
     from tgq_torch.models import PRESETS
@@ -1394,6 +1405,8 @@ def write_hf_model(path: str, preset: str, dev, n_files: int = 1):
     from tgq_torch.models.safetensors_io import save_checkpoint
 
     cfg = PRESETS[preset]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     params = init_params(cfg, seed=0, device=dev)
     t0 = time.time()  # the export's work: flatten to HF names on the host, write
     flatten = _gpt2_state_dict if cfg.family == "gpt2" else _opt_state_dict
@@ -2658,6 +2671,228 @@ def phase10_parallel(dev, counts: dict, k5: dict, p3=None, single=None,
         f"{marks}); {card_line()}")
 
 
+# ------------------ slice 11: GPT-2, OPT and the sketch under the mesh (10e)
+
+# (label, preset, layers, mode, meshes as (data, model)); phase 8's
+# calibration: 32 sequences at the model's seqlen, W4 g128, eps 1e-6 energy.
+# svd at one layer (cut from 2): its host f64 sketch_factor at a rank's 2
+# threads took about 22.6 s a layer on each of its three sweeps (an H100
+# host of 8 cores)
+FAMILY_MESH_RUNS = (
+    ("gpt2", "gpt2", 12, "pchol", ((2, 2),)),
+    ("opt-1.3b", "opt-1.3b", 4, "pchol", ((2, 2),)),
+    ("gpt2-svd", "gpt2", 1, "svd", ((2, 2), (4, 1))),
+)
+
+
+def family_sweep(path: str, mode: str, dev, n_samples: int, group_size: int, mesh=None,
+                 eval_tokens: int = 0) -> dict:
+    """``quantize_model`` of the HF checkpoint at ``path`` on phase 8's
+    calibration, on this rank's ``mesh`` or alone: its packed codes (on the
+    host), the sha256 of each finalized svd sketch, its seconds, its K1 /
+    K2 / K6 launches and, with ``eval_tokens``, its strided PPL."""
+    import hashlib
+
+    import torch
+
+    from tgq_torch.calib import QuantizeConfig, pipeline, quantize_model, synthetic_calibration
+    from tgq_torch.calib.data import synthetic_eval_stream
+    from tgq_torch.eval import perplexity_from_token_stream
+    from tgq_torch.kernels import causal_attention as K6
+    from tgq_torch.kernels import gptq_block as K2
+    from tgq_torch.kernels import pchol_panel as K1
+    from tgq_torch.models.hf_import import load_hf_checkpoint
+
+    params, cfg = load_hf_checkpoint(path, device=dev)
+    calib = synthetic_calibration(cfg.vocab_size, n_samples, cfg.seqlen, seed=42)
+    qcfg = QuantizeConfig(mode=mode, w_bits=4, group_size=group_size, eps=1e-6,
+                          threshold_method="energy")
+    digests, factorize = [], pipeline._factorize
+
+    def capture(h_or_y, q, eps):
+        if q.mode == "svd":
+            digests.append(hashlib.sha256(h_or_y.cpu().numpy().tobytes()).hexdigest())
+        return factorize(h_or_y, q, eps)
+
+    pipeline._factorize = capture
+    K1.launches = K2.launches = K6.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        params, packed, _ = quantize_model(params, cfg, calib, qcfg, device=dev, mesh=mesh)
+    finally:
+        pipeline._factorize = factorize
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out = {"s_per_layer": (time.time() - t0) / cfg.num_layers, "digests": digests,
+           "launches": {"pchol_panel": K1.launches, "gptq_block": K2.launches,
+                        "causal_attention": K6.launches},
+           "codes": {k: v.codes.cpu() for k, v in packed.items()},
+           "in_features": {k: v.in_features for k, v in packed.items()}}
+    if eval_tokens:
+        out["ppl"] = perplexity_from_token_stream(
+            params, cfg, synthetic_eval_stream(cfg.vocab_size, eval_tokens, seed=43),
+            max_length=cfg.seqlen, stride=cfg.seqlen // 4)
+    return out
+
+
+def codes_moved(codes: dict, ref: dict, bits: int, group_size: int) -> dict:
+    """Each module's share of codes that differ from ``ref``'s (0.0 where
+    the packed codes are equal bit for bit)."""
+    import torch
+
+    from tgq_torch.core.packing import unpack_rows
+
+    out = {}
+    for k, c in codes.items():
+        r, n = ref["codes"][k], ref["in_features"][k]
+        out[k] = 0.0 if torch.equal(c, r) else float(
+            (unpack_rows(c.T, bits, group_size, n) != unpack_rows(r.T, bits, group_size, n))
+            .float().mean())
+    return out
+
+
+def family_mesh_rank(runs, tmp: str, n_samples: int, group_size: int,
+                     eval_tokens: int) -> dict:
+    """One of 4 ranks of phase 10e.  Rank 0 first runs every single-rank
+    sweep alone on the card (the others wait) and saves its codes as
+    ``<label>.ref.pt``: in a rank, so that its host f64 factorizations
+    (svd's sketch_factor) run on as many threads as the mesh sweeps',
+    which their last bits depend on.  Then every mesh sweep of ``runs``;
+    rank 0 holds its codes to the single rank's and evaluates its PPL."""
+    import hashlib
+
+    import torch
+
+    from tgq_torch.parallel import make_mesh
+
+    dev = rank_device()
+    if dev.type == "cuda":   # the process's first CUDA work, out of the timings
+        from tgq_torch.kernels import _build
+
+        _build.lib()
+        torch.ones((256, 256), device=dev).matmul(torch.ones((256, 256), device=dev))
+        torch.cuda.synchronize()
+    out = {}
+    if torch.distributed.get_rank() == 0:
+        for label, _, _, mode, _ in runs:
+            res = family_sweep(os.path.join(tmp, label), mode, dev, n_samples, group_size,
+                               eval_tokens=eval_tokens)
+            torch.save({"codes": res.pop("codes"), "in_features": res.pop("in_features")},
+                       os.path.join(tmp, f"{label}.ref.pt"))
+            out[f"{label} single"] = res
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    shapes = list(dict.fromkeys(shape for *_, meshes in runs for shape in meshes))
+    # every rank creates every mesh's groups, in one order
+    meshes = {shape: make_mesh(*shape) for shape in shapes}
+    for label, _, _, mode, run_shapes in runs:
+        for shape in run_shapes:
+            mesh = meshes[shape]
+            res = family_sweep(os.path.join(tmp, label), mode, dev, n_samples, group_size,
+                               mesh, eval_tokens if mesh.rank == 0 else 0)
+            codes = res.pop("codes")
+            res["codes_sha256"] = hashlib.sha256(b"".join(
+                codes[k].numpy().tobytes() for k in sorted(codes))).hexdigest()
+            if mesh.rank == 0:
+                ref = torch.load(os.path.join(tmp, f"{label}.ref.pt"), weights_only=False)
+                res["moved"] = codes_moved(codes, ref, 4, group_size)
+            out[f"{label} {shape}"] = res
+            del codes
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def phase10e_family_mesh(dev, counts: dict, runs=FAMILY_MESH_RUNS, n_samples: int = 32,
+                         group_size: int = 128, eval_tokens: int = 8192) -> None:
+    """Phase 10e: GPT-2, OPT and svd under the mesh against single-rank
+    sweeps of the same checkpoints on the card (module docstring).  The
+    keyword arguments cut sizes for a rehearsal on the CPU."""
+    import torch
+
+    from tgq_torch.models import PRESETS
+    from tgq_torch.parallel.launch import spawn
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, preset, layers, _, _ in runs:
+            write_hf_model(os.path.join(tmp, label), preset, dev, layers=layers)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()   # the ranks share the card
+        # the 4 ranks share the host's cores: cap the OpenMP and BLAS threads
+        # of each (its host f64 factorizations), which the libraries read
+        # from the environment when a child loads them, before its first
+        # line runs; set around the spawn in this, the script's one thread
+        caps = [k for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+                if k not in os.environ]
+        os.environ.update({k: str(max(1, (os.cpu_count() or 1) // 4)) for k in caps})
+        try:
+            ranks = spawn(family_mesh_rank, 4,
+                          args=(runs, tmp, n_samples, group_size, eval_tokens),
+                          device=dev.type, timeout_s=900)
+        finally:
+            for k in caps:
+                del os.environ[k]
+    for r in ranks:
+        for res in r.values():
+            for k, v in res["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+    for label, _, layers, _, _ in runs:
+        one = ranks[0][f"{label} single"]
+        log(f"[phase10e] {label} single rank (rank 0 of the spawn, the others waiting): "
+            f"{layers} layers, {one['s_per_layer']:.3f} s/layer, PPL {one['ppl']:.4f}, "
+            f"launches {one['launches']}")
+    if dev.type == "cuda":
+        for i, r in enumerate(ranks):
+            total = {k: sum(res["launches"][k] for key, res in r.items() if "single" not in key)
+                     for k in ("pchol_panel", "gptq_block", "causal_attention")}
+            assert all(v > 0 for v in total.values()), (i, total)
+    for label, preset, layers, mode, shapes in runs:
+        one = ranks[0][f"{label} single"]
+        for shape in shapes:
+            key = f"{label} {shape}"
+            results = [r[key] for r in ranks]
+            assert len({res["codes_sha256"] for res in results}) == 1, key  # ranks agree
+            if dev.type == "cuda":
+                assert all(res["launches"]["gptq_block"] > 0 and res["launches"][
+                    "causal_attention"] > 0 and (mode == "svd" or res["launches"][
+                        "pchol_panel"] > 0) for res in results), [
+                    res["launches"] for res in results]
+            r0 = results[0]
+            by_layer = [max(v for k, v in r0["moved"].items() if k.startswith(f"layers.{li}."))
+                        for li in range(layers)]
+            moved = {li: f"{m:.4%}" for li, m in enumerate(by_layer) if m}
+            sketches = r0["digests"] == one["digests"]
+            ppl_rel = r0["ppl"] / one["ppl"] - 1
+            log(f"[phase10e] {key} {mode}, {layers} layers, {n_samples} x "
+                f"{PRESETS[preset].seqlen} tokens, 4 ranks: layers whose codes equal the single "
+                f"rank's {sum(not m for m in by_layer)}/{layers}"
+                + (f" (codes moved: {moved})" if moved else "")
+                + (f"; svd sketches bit-equal {sketches} ({len(one['digests'])} groups)"
+                   if mode == "svd" else "")
+                + f"; PPL {r0['ppl']:.4f} vs single {one['ppl']:.4f} ({ppl_rel:+.4%}); "
+                f"{r0['s_per_layer']:.3f} s/layer (single {one['s_per_layer']:.3f}); "
+                f"launches by rank {[res['launches'] for res in results]}; {card_line()}")
+            if PRESETS[preset].family == "gpt2":   # nothing in a GPT-2 layer is split
+                assert not any(by_layer), (key, moved)
+            else:
+                # layer 0 reads the replicated LayerNorm input (q/k/v) and the
+                # heads gathered in order (out_proj, fc1, fc2); later layers'
+                # column-sliced GEMMs are not promised the single rank's bits
+                assert not by_layer[0], (key, r0["moved"])
+                assert max(by_layer) < 0.02 and abs(ppl_rel) < 0.02, (key, moved, ppl_rel)
+            if mode == "svd":
+                assert sketches, key
+    log(f"[phase10e] GPT-2, OPT and svd under the mesh: {time.time() - t_phase:.1f} s; "
+        f"{card_line()}")
+
+
 # ------------------------- slice 9: K6, causal flash attention, and the CLIs (11)
 
 K6_SHAPES = (  # (label, batch, tokens, q heads, kv heads, head_dim) of the main paths
@@ -2981,6 +3216,7 @@ def main() -> int:
                       soak_args=("--n_requests", "256"))
     if 10 in phases:
         phase10_parallel(dev, counts, k5, p3, serve7b)
+        phase10e_family_mesh(dev, counts)
     if 11 in phases:
         t11 = time.time()
         phase11a_k6_check(dev, k6)

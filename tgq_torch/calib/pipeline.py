@@ -17,11 +17,15 @@
 - ``spectral_consistency_check`` is the CLI's ``--mode test``.
 - With a ``mesh`` (``tgq_torch.parallel.make_mesh``, one process a rank)
   the calibration batch is split on "data" and the layer forwards run
-  tensor-parallel on "model"; the inputs of o_proj and down_proj, split
-  by head and by MLP column there, are gathered before their Gram, and
-  every Gram is summed over "data" in the single process's order
-  (``tgq_torch.parallel.mesh.dp_sum``).  The factorization and the GPTQ
-  loop run replicated on every rank, which all write back the same
+  tensor-parallel on "model" by the JAX package's rules (llama: q/k/v and
+  gate/up by output, o_proj and down_proj by input; OPT: q/k/v by heads;
+  GPT-2 and the rest of OPT replicated).  The inputs of a row-parallel
+  group (llama's o_proj and down_proj, split by head and by MLP column)
+  are gathered before their Gram; every Gram, and every sketch part of
+  ``mode="svd"``, is summed over "data" in the single process's order
+  (``tgq_torch.parallel.mesh.dp_sum``), so both are the single process's
+  bit for bit where the layer's inputs are.  The factorization and the
+  GPTQ loop run replicated on every rank, which all write back the same
   weights.
 """
 from __future__ import annotations
@@ -61,6 +65,7 @@ from tgq_torch.models.convert import numpy_from_tensor, tensor_from_numpy
 from tgq_torch.parallel.mesh import (
     all_gather_last,
     dp_sum,
+    linear_split,
     local_config,
     serving_mesh_scope,
     shard_params,
@@ -210,51 +215,70 @@ def _rtn_quantize(w: torch.Tensor, spec: QuantSpec):
 class _Mesh:
     """What one layer's quantization needs of a mesh: this rank's shards
     of the layer and config, the gather of a TP-split activation, the
-    data-parallel Hessian sum, and the mesh scope for the forwards.  A
-    single process is the mesh of one."""
+    data-parallel Hessian or sketch sum, and the mesh scope for the
+    forwards.  A single process is the mesh of one."""
 
     def __init__(self, mesh, cfg: ModelConfig):
         self.mesh = mesh
         self.tp = mesh is not None and mesh.model > 1
         self.cfg = local_config(cfg, mesh)
+        # a TP forward leaves a group's input split by column exactly where
+        # the group is row-parallel (llama's o_proj and down_proj read the
+        # rank's heads and MLP columns); the replicated out_proj, fc2 and
+        # c_proj of OPT and GPT-2 read whole activations (OPT gathers its
+        # heads in ``opt_attn_core``)
+        self.split = [self.tp and linear_split(names[0]) == "row"
+                      for names in sequenced_groups(cfg)]
 
     def layer(self, lp: Params) -> Params:
         return shard_params(lp, self.mesh) if self.tp else lp
 
-    def full(self, a: torch.Tensor) -> torch.Tensor:
-        return all_gather_last(a, self.mesh, "model") if self.tp else a
+    def full(self, a: torch.Tensor, gi: int) -> torch.Tensor:
+        """Group ``gi``'s whole input from this rank's forward output."""
+        return all_gather_last(a, self.mesh, "model") if self.split[gi] else a
 
-    def accumulator(self, in_f: int, device):
-        """Data ranks after the first keep their batch Grams for
-        ``dp_sum``; the first, and a single process, add them in place."""
-        return HessianAccumulator.init(in_f, device=device, keep_parts=self.mesh is not None
-                                       and self.mesh.data_rank > 0)
+    def accumulator(self, in_f: int, qcfg: QuantizeConfig, device, batches: int):
+        """The group's Gram (sketch for svd) accumulator.  Data ranks after
+        the first keep their batch parts for ``dp_sum``; the first, and a
+        single process, add them in place.  Every data rank holds
+        ``batches`` batches, so a sketch's first batch is global batch
+        ``data_rank * batches``."""
+        data_rank = 0 if self.mesh is None else self.mesh.data_rank
+        if qcfg.mode == "svd":
+            return SketchAccumulator.init(in_f, rank=int(in_f * qcfg.sketch_ratio),
+                                          seed=qcfg.seed, device=device,
+                                          keep_parts=data_rank > 0,
+                                          first_batch=data_rank * batches)
+        return HessianAccumulator.init(in_f, device=device, keep_parts=data_rank > 0)
 
-    def hessian(self, acc):
+    def finalize(self, acc):
+        """The normalized Hessian (or sketch) over every data rank's tokens."""
         if self.mesh is None:
             return acc.finalize()
         # every data rank holds as many tokens
-        own = acc.h if acc.parts is None else acc.parts
-        return dp_sum(own, self.mesh) / max(acc.n_samples * self.mesh.data, 1)
+        return acc.normalize(dp_sum(acc.own(), self.mesh), acc.n_samples * self.mesh.data)
 
     def scope(self):
         return serving_mesh_scope(self.mesh) if self.mesh is not None \
             else contextlib.nullcontext()
 
 
-def _check_dp_parts(cfg: ModelConfig, batches: int, dev: torch.device) -> None:
-    """Data ranks after the first keep one f32 n x n Gram per calibration
-    batch until ``dp_sum`` (n the group's input width, down_proj's the
-    widest): refuse a sweep whose Grams would not fit in this rank's share
-    of the card's free memory, before the sweep starts."""
+def _check_dp_parts(cfg: ModelConfig, qcfg: QuantizeConfig, batches: int,
+                    dev: torch.device) -> None:
+    """Data ranks after the first keep one f32 part per calibration batch
+    until ``dp_sum``: an n x n Gram, or a (sketch_ratio·n) x n sketch part
+    in svd mode (n the group's input width, down_proj's the widest):
+    refuse a sweep whose parts would not fit in this rank's share of the
+    card's free memory, before the sweep starts."""
     if dev.type != "cuda":
         return
     n = max(_group_in_features(cfg, gi) for gi in range(4))
-    need = batches * n * n * 4
+    rows = int(n * qcfg.sketch_ratio) if qcfg.mode == "svd" else n
+    need = batches * rows * n * 4
     free, _ = torch.cuda.mem_get_info(dev)
     sharing = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", 1)) // torch.cuda.device_count())
     if need > free // sharing:
-        raise ValueError(f"quantize_model: a data rank keeps {batches} Grams of {n} x {n} f32 "
+        raise ValueError(f"quantize_model: a data rank keeps {batches} parts of {rows} x {n} f32 "
                          f"({need / 2**30:.1f} GiB) for the exact data-parallel sum, more than "
                          f"its {free / sharing / 2**30:.1f} GiB share of the card's free memory; "
                          "raise batch_size or lower the data degree")
@@ -291,9 +315,6 @@ def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
     pm = _Mesh(mesh, cfg)
     if pm.tp and attn is not None:
         raise ValueError("quantize_layer: attn overrides run without a TP mesh")
-    if mesh is not None and staged and qcfg.mode == "svd":
-        raise NotImplementedError("the sketch (svd mode) under a mesh: its random "
-                                  "projections would differ per data rank")
     cfg_l = pm.cfg
 
     for gi, group_names in enumerate(sequenced_groups(cfg)):
@@ -319,19 +340,15 @@ def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
             if gi == 0:
                 return attn_input(lp, cfg, inps[j : j + bs])
             if gi == 1:
-                return pm.full(attn_l[jj])
+                return pm.full(attn_l[jj], gi)
             if gi == 2:
                 return mlp_input(lp, cfg, x2_l[jj])
             with pm.scope():
-                return pm.full(_stage_act(lp_t, cfg_l, x2_l[jj]))
+                return pm.full(_stage_act(lp_t, cfg_l, x2_l[jj]), gi)
 
         stats = None
         if staged:
-            if qcfg.mode == "svd":
-                acc = SketchAccumulator.init(in_f, rank=int(in_f * qcfg.sketch_ratio),
-                                             seed=qcfg.seed, device=inps.device)
-            else:
-                acc = pm.accumulator(in_f, inps.device)
+            acc = pm.accumulator(in_f, qcfg, inps.device, len(idx))
             fused_t = (gi == 3 and cfg.family == "llama" and qcfg.mode != "svd"
                        and "b" not in get_nested(lp, "mlp.gate_proj") and not pm.tp)
             with timers.phase("accumulate"):
@@ -340,7 +357,7 @@ def quantize_layer(lp: Params, cfg: ModelConfig, inps: torch.Tensor, cos, sin,
                         acc.update_t(_stage_act_t(lp, cfg, x2_l[jj]))
                     else:
                         acc.update(group_act(jj, j))
-                h_or_y = acc.finalize() if qcfg.mode == "svd" else pm.hessian(acc)
+                h_or_y = pm.finalize(acc)
             del acc
             t_f = time.time()
             with timers.phase("factorize"):
@@ -555,11 +572,14 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
     one layer.  ``stop_after_layer`` ends the sweep after that layer.
 
     ``mesh`` (this rank's ``tgq_torch.parallel.Mesh``, every rank calling
-    with the same arguments): this rank calibrates on its "data" share of
-    ``input_ids`` (whole batches of ``batch_size``; the Hessians are then
-    the single-process ones when the share is a multiple of it) with TP
-    layer forwards on "model", and returns the same params, packed export
-    and log as every other rank; only rank 0 writes ``resume_dir``.
+    with the same arguments; any family and mode): this rank calibrates on
+    its "data" share of ``input_ids`` with TP layer forwards on "model",
+    and returns the same params, packed export and log as every other
+    rank; only the mesh's rank 0 writes ``resume_dir``.  The share is a
+    contiguous run of the single process's batches when it is a multiple
+    of ``batch_size``: the Hessians and svd sketches are then the single
+    process's, bit for bit where the layer's inputs are (everywhere under
+    a data-only mesh and for GPT-2, whose layers are replicated).
     """
     if qcfg.kernel_backend not in ("kernel", "plain"):
         raise ValueError(f"unknown kernel_backend {qcfg.kernel_backend!r}")
@@ -582,11 +602,11 @@ def quantize_model(params: Params, cfg: ModelConfig, input_ids: np.ndarray,
             raise ValueError(f"quantize_model: {n_samples} samples do not split into "
                              f"data={mesh.data}")
         # each data rank runs whole batches of the single-process sweep, so
-        # dp_sum adds the same batch Grams in the same order
+        # dp_sum adds the same batch Grams (sketch parts) in the same order
         share = n_samples // mesh.data
         input_ids = input_ids[mesh.data_rank * share:(mesh.data_rank + 1) * share]
         n_samples = share
-        _check_dp_parts(cfg, -(-share // bs), dev)
+        _check_dp_parts(cfg, qcfg, -(-share // bs), dev)
     writer = mesh is None or mesh.rank == 0
 
     t_start = time.time()

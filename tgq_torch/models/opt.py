@@ -28,6 +28,7 @@ import torch
 
 from tgq_torch.models.config import ModelConfig
 from tgq_torch.models.gpt2 import layer_norm
+from tgq_torch.parallel.mesh import all_gather_last, tp_mesh
 from tgq_torch.utils.precision import resolve_device
 
 Params = dict
@@ -53,7 +54,9 @@ def opt_attn_input(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tenso
 def opt_attn_core(lp: Params, cfg: ModelConfig, h: torch.Tensor,
                   attn_impl: str = "auto") -> torch.Tensor:
     """q/k/v through causal attention (no rope); returns the out_proj
-    (group 1) input, shape (batch, seq, hidden)."""
+    (group 1) input, shape (batch, seq, hidden).  Under a TP mesh the rank
+    holds its heads' q/k/v (``cfg`` its local config); out_proj is
+    replicated, so the heads are gathered here, the one gather of them."""
     from tgq_torch.models.causal_lm import apply_linear, causal_attention
 
     b, s, _ = h.shape
@@ -61,7 +64,9 @@ def opt_attn_core(lp: Params, cfg: ModelConfig, h: torch.Tensor,
     q = apply_linear(lp["self_attn"]["q_proj"], h).reshape(shape)
     k = apply_linear(lp["self_attn"]["k_proj"], h).reshape(shape)
     v = apply_linear(lp["self_attn"]["v_proj"], h).reshape(shape)
-    return causal_attention(q, k, v, impl=attn_impl).reshape(b, s, cfg.hidden_size)
+    attn = causal_attention(q, k, v, impl=attn_impl).reshape(b, s, -1)
+    mesh = tp_mesh()
+    return attn if mesh is None else all_gather_last(attn, mesh, "model")
 
 
 def opt_attn_out(lp: Params, cfg: ModelConfig, attn: torch.Tensor) -> torch.Tensor:

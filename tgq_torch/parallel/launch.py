@@ -146,7 +146,13 @@ def _worker(rank: int, world: int, port: int, device: str, timeout_s: float, fn,
                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
     if device == "cpu":  # ranks share the host's cores
-        torch.set_num_threads(max(1, min(4, (os.cpu_count() or 1) // world)))
+        n = max(1, min(4, (os.cpu_count() or 1) // world))
+        torch.set_num_threads(n)
+        # and so does the BLAS of the host factorizations (scipy's), which
+        # reads this when it loads, after this point unless ``fn``'s module
+        # imported it
+        for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+            os.environ.setdefault(k, str(n))
     try:
         init_distributed(device, timeout_s)
         out.put((rank, "ok", _to_host(fn(*args))))

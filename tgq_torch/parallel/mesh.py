@@ -15,7 +15,10 @@ the collectives itself:
 - embed_tokens and lm_head split by vocab: a masked lookup and an
   ``all_reduce``, the head's logits gathered;
 - norms replicated; packed leaves are K-major, so their rules are the
-  dense ones transposed.
+  dense ones transposed;
+- of the other families only OPT's q/k/v_proj match a rule (split by
+  heads); OPT's out_proj, fc1, fc2 and all of a GPT-2 layer (c_attn,
+  c_proj, c_fc) are replicated, as in the JAX package.
 
 Global rank ``r`` sits at (data ``r // model``, model ``r % model``): a
 model row is a run of consecutive ranks, so on a multi-host launch the TP
@@ -214,10 +217,19 @@ def broadcast_int(value: int, mesh: Mesh) -> int:
 # --------------------------------------------------------- sharding rules
 
 
+def linear_split(name: str) -> Optional[str]:
+    """How the rules split the linear named ``name`` (a dotted path's last
+    key decides): "col" (by output), "row" (by input) or None
+    (replicated, as GPT-2's c_proj is)."""
+    key = name.rsplit(".", 1)[-1]
+    return "col" if key in _COL_SHARDED else "row" if key in _ROW_SHARDED else None
+
+
 def _linear_spec(name: str, for_bias: bool = False) -> tuple:
-    if name in _COL_SHARDED:
+    split = linear_split(name)
+    if split == "col":
         return ("model",) if for_bias else ("model", None)
-    if name in _ROW_SHARDED:
+    if split == "row":
         return () if for_bias else (None, "model")
     return ()
 
@@ -286,20 +298,28 @@ def shard_params(params, mesh: Mesh, path=()):
 
 
 def local_config(cfg, mesh: Optional[Mesh]):
-    """The model config one rank computes with: its share of the q and kv
-    heads and of the MLP width (hidden size and vocabulary unchanged)."""
+    """The model config one rank computes with, from what the rules split
+    in its layers: the heads (q and kv) when the first quantization group
+    (q/k/v_proj) is split by output, the MLP width when the third
+    (gate/up_proj) is.  Llama splits both, OPT its heads (q/k/v_proj; fc1
+    is replicated), GPT-2 neither (c_attn, c_fc).  Hidden size and
+    vocabulary unchanged (``shard_params`` checks the vocabulary where it
+    splits the embedding and head)."""
+    from tgq_torch.models.causal_lm import sequenced_groups
+
     tp = 1 if mesh is None else mesh.model
     if tp == 1:
         return cfg
-    if cfg.family != "llama":
-        raise NotImplementedError(f"tensor parallelism runs the llama family, not {cfg.family!r}")
-    for what, n in (("heads", cfg.num_heads), ("kv heads", cfg.num_kv_heads),
-                    ("intermediate size", cfg.intermediate_size), ("vocab", cfg.vocab_size)):
-        if n % tp:
+    groups = sequenced_groups(cfg)
+    heads, mlp = (linear_split(groups[gi][0]) == "col" for gi in (0, 2))
+    for what, n, split in (("heads", cfg.num_heads, heads), ("kv heads", cfg.num_kv_heads, heads),
+                           ("intermediate size", cfg.intermediate_size, mlp)):
+        if split and n % tp:
             raise ValueError(f"{cfg.name}: {what} {n} do not split into {tp} ranks")
-    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
-                               num_kv_heads=cfg.num_kv_heads // tp,
-                               intermediate_size=cfg.intermediate_size // tp)
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // tp if heads else cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads // tp if heads else cfg.num_kv_heads,
+        intermediate_size=cfg.intermediate_size // tp if mlp else cfg.intermediate_size)
 
 
 # ------------------------------------------------- data-parallel Hessian
@@ -378,11 +398,8 @@ def mark_tp_kinds(params):
 
     def walk(node, name=None):
         if isinstance(node, PackedLinear):
-            if name in _COL_SHARDED:
-                return dataclasses.replace(node, tp_kind="col")
-            if name in _ROW_SHARDED:
-                return dataclasses.replace(node, tp_kind="row")
-            return node
+            kind = None if name is None else linear_split(name)
+            return node if kind is None else dataclasses.replace(node, tp_kind=kind)
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, list):

@@ -76,6 +76,10 @@ class HessianAccumulator:
         else:
             self.parts.append(g)
 
+    def own(self):
+        """What this rank gives ``dp_sum``: its kept parts, or its sum."""
+        return self.h if self.parts is None else self.parts
+
     def update(self, x: torch.Tensor) -> "HessianAccumulator":
         self._add(gram(x))
         self.n_samples += x.numel() // x.shape[-1]
@@ -87,9 +91,14 @@ class HessianAccumulator:
         self.n_samples += xt.numel() // xt.shape[0]
         return self
 
+    @staticmethod
+    def normalize(total: torch.Tensor, n_samples: int) -> torch.Tensor:
+        """The Hessian of a Gram sum over ``n_samples`` tokens."""
+        return total / max(n_samples, 1)
+
     def finalize(self) -> torch.Tensor:
         """Normalized Hessian (f32).  Safe on an empty accumulator."""
-        return self.h / max(self.n_samples, 1)
+        return self.normalize(self.h, self.n_samples)
 
 
 @dataclasses.dataclass
@@ -97,31 +106,57 @@ class SketchAccumulator:
     """Randomized Gaussian sketch Y = Σ R_batch X, scaled by
     1/sqrt(N·rank) at finalize.  The Gaussian numbers come from a
     ``torch.Generator``, so they differ from ``jax.random``'s; the sketch
-    agrees with the JAX one in distribution, not in bits."""
+    agrees with the JAX one in distribution, not in bits.
+
+    One process draws every batch's R_b from one generator, in order.  A
+    data rank whose first batch is global batch ``first_batch`` draws and
+    drops that many projections of its first batch's shape before its own
+    (every data rank holds batches of one shape): the generators' outputs
+    depend on the calls' shapes (the CPU's vectorised normal, the CUDA
+    Philox offsets), so one larger draw or a computed offset would not
+    give the same numbers.  It keeps its R_b X_b in ``parts`` for
+    ``dp_sum`` like the Grams, and the sum is the single process's
+    sketch."""
 
     y: torch.Tensor
     n_samples: int
     gen: torch.Generator
+    parts: list | None = None
+    skip: int = 0
 
     @classmethod
-    def init(cls, in_features: int, rank: int, seed: int = 0,
-             device="cpu") -> "SketchAccumulator":
+    def init(cls, in_features: int, rank: int, seed: int = 0, device="cpu",
+             keep_parts: bool = False, first_batch: int = 0) -> "SketchAccumulator":
         dev = torch.device(device)
         return cls(y=torch.zeros((rank, in_features), dtype=torch.float32, device=dev),
-                   n_samples=0,
-                   gen=torch.Generator(device=dev).manual_seed(seed))
+                   n_samples=0, gen=torch.Generator(device=dev).manual_seed(seed),
+                   parts=[] if keep_parts else None, skip=first_batch)
+
+    def own(self):
+        """What this rank gives ``dp_sum``: its kept parts, or its sum."""
+        return self.y if self.parts is None else self.parts
 
     def update(self, x: torch.Tensor) -> "SketchAccumulator":
         x = _flatten_tokens(x).float()
-        r = torch.randn((self.y.shape[0], x.shape[0]), generator=self.gen,
-                        dtype=torch.float32, device=self.y.device)
-        self.y += r @ x
+        shape = (self.y.shape[0], x.shape[0])
+        for _ in range(self.skip):   # the earlier data ranks' batches
+            torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.y.device)
+        self.skip = 0
+        r = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.y.device)
+        if self.parts is None:
+            self.y += r @ x
+        else:
+            self.parts.append(r @ x)
         self.n_samples += x.shape[0]
         return self
 
+    @staticmethod
+    def normalize(total: torch.Tensor, n_samples: int) -> torch.Tensor:
+        """The sketch of a sum over ``n_samples`` tokens."""
+        return total / (max(n_samples, 1) * total.shape[0]) ** 0.5
+
     def finalize(self) -> torch.Tensor:
-        n = max(self.n_samples, 1)
-        return self.y / (n * self.y.shape[0]) ** 0.5
+        return self.normalize(self.y, self.n_samples)
 
 
 def hessian_from_activations(x: torch.Tensor) -> torch.Tensor:
