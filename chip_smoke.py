@@ -9,6 +9,7 @@
                                              # sweep itself when phase 3 is not asked for),
                                              # GPT-2 / OPT / svd under the mesh (10e)
     python3 chip_smoke.py --phases 0,11      # K6 (causal flash attention), the slice-9 CLIs
+    python3 chip_smoke.py --phases 0,12      # K6-bwd, training through the flash attention
 
 Phases:
   0. the card's name and power limit; build the CUDA kernels from
@@ -128,6 +129,19 @@ Phases:
      ``trunc_regimes`` (one cell), ``tiny_quality_bench`` (300 steps, W4,
      A16 and A8), ``boundary_bench`` and ``reproduce_baseline --smoke`` on
      the card, each with the counters read around it.
+ 12. K6-bwd, the gradients of the causal flash attention, and the training
+     path through it: (a) dq, dk, dv against the plain backward within
+     ``causal_attention_bwd.bwd_tolerance`` over phase 11a's cases, K6's
+     stats output against the plain log2-sum-exp, K6's o bit-identical with
+     the stats output on and off, two backward launches, a batch and each
+     sequence alone, head slices and the full launch, all bit for bit; the
+     two kernels' ptxas registers and spills; (b) timed at the calibration,
+     GPT-2 and OPT-1.3b shapes beside its bound, its plain version and the
+     SDPA backward (the yardstick only); (c) the LM loss through the staged
+     functions with ``attn_impl="flash"`` at Qwen3-8B full width (2 layers,
+     4 x 2048) and GPT-2 (12 layers, 8 x 1024): every parameter's gradient
+     against "naive" within ``TRAIN_REL_FROB``, then 3 AdamW steps with the
+     loss falling, K6-bwd launched once a layer a step, the seconds a step.
 
 Every mismatch raises; the script exits 0 only if every phase passed.
 The second-to-last line is a JSON object with one entry per kernel, the
@@ -1808,7 +1822,8 @@ KERNEL_COUNTERS = (("pchol_panel", "pchol_panel", "launches"),
                    ("dequant_matmul", "dequant_matmul", "launches"),
                    ("a8_matmul", "dequant_matmul", "launches_a8"),
                    ("paged_attention", "paged_attention", "launches"),
-                   ("causal_attention", "causal_attention", "launches"))
+                   ("causal_attention", "causal_attention", "launches"),
+                   ("causal_attention_bwd", "causal_attention_bwd", "launches"))
 
 
 @contextlib.contextmanager
@@ -2942,9 +2957,10 @@ def k6_inputs(gen, dev, b: int, s: int, h: int, kv: int, d: int, q_scale: float 
     return draw(h, q_scale), draw(kv), draw(kv)
 
 
-def k6_ptxas(report: str) -> dict:
+def k6_ptxas(report: str, kernel: str = "causal_attention_wgmma") -> dict:
     """{kernel: (registers, spill store bytes, spill load bytes, wgmma
-    serialisation warnings)} of K6's wgmma kernels in a ptxas -v report."""
+    serialisation warnings)} of the kernels whose names hold ``kernel`` (K6's
+    wgmma kernels by default) in a ptxas -v report."""
     import re
 
     out, name = {}, None
@@ -2956,7 +2972,7 @@ def k6_ptxas(report: str) -> dict:
             continue
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1) if "causal_attention_wgmma" in m.group(1) else None
+            name = m.group(1) if kernel in m.group(1) else None
             continue
         if name is None:
             continue
@@ -2970,27 +2986,12 @@ def k6_ptxas(report: str) -> dict:
     return {k: v + (serial.get(k, 0),) for k, v in out.items()}
 
 
-def phase11a_k6_check(dev, k6: dict, report: str | None = None) -> None:
-    """K6 against its plain version: every element within
-    ``causal_attention.tolerance`` (2^-8 + 2^-12 of the row's Σ p·|v| for the
-    bf16 probabilities and the f32 order, and 2 bf16 ulps for the outputs'
-    roundings), over lengths at the 64- and 128-row tile edges, every head
-    size, GQA group and strided view the main paths give it; then two
-    launches, a batch and each sequence alone, a head slice and the full
-    launch, bit for bit.  ``report`` (ptxas -v of the build) must show the
-    wgmma kernels free of spills and of serialised wgmmas."""
+def k6_cases(gen, dev) -> list:
+    """[(label, make)]: K6's check cases, ``make()`` giving bf16 q, k, v from
+    ``gen``: lengths at the 64- and 128-row tile edges, every head size, GQA
+    group and strided view the main paths give it, a peaked softmax."""
     import torch
 
-    from tgq_torch.kernels import _build
-    from tgq_torch.kernels import causal_attention as K6
-
-    t0 = time.time()
-    regs = k6_ptxas(_build.ptxas_report() if report is None else report)
-    log(f"[phase11a] K6 wgmma kernels (registers, spill store / load bytes, wgmma "
-        f"serialisation warnings): {regs}")
-    assert len(regs) == 2 and all(r[1:] == (0, 0, 0) for r in regs.values()), regs
-    before = K6.launches
-    gen = torch.Generator(device=dev).manual_seed(11)
     cases = [(1, s, 32, 8, 128, 1.0)
              for s in (1, 7, 64, 100, 127, 128, 129, 255, 256, 257, 2047, 2048)]
     cases += [(2, 129, 4, 2, 16, 1.0), (2, 1000, 4, 2, 16, 1.0),     # tiny-qwen3's heads
@@ -3018,6 +3019,31 @@ def phase11a_k6_check(dev, k6: dict, report: str | None = None) -> None:
                 lambda: views(2, 1024, 12, 64)),
                ("GPT-2 fused q/k/v views b 2 s 129 heads 12 d 64", lambda: views(2, 129, 12, 64)),
                ("OPT-1.3b TP 2 head slice 16:32 b 2 s 2048 d 64", opt_tp_slice)]
+    return inputs
+
+
+def phase11a_k6_check(dev, k6: dict, report: str | None = None) -> None:
+    """K6 against its plain version: every element within
+    ``causal_attention.tolerance`` (2^-8 + 2^-12 of the row's Σ p·|v| for the
+    bf16 probabilities and the f32 order, and 2 bf16 ulps for the outputs'
+    roundings), over lengths at the 64- and 128-row tile edges, every head
+    size, GQA group and strided view the main paths give it; then two
+    launches, a batch and each sequence alone, a head slice and the full
+    launch, bit for bit.  ``report`` (ptxas -v of the build) must show the
+    wgmma kernels free of spills and of serialised wgmmas."""
+    import torch
+
+    from tgq_torch.kernels import _build
+    from tgq_torch.kernels import causal_attention as K6
+
+    t0 = time.time()
+    regs = k6_ptxas(_build.ptxas_report() if report is None else report)
+    log(f"[phase11a] K6 wgmma kernels (registers, spill store / load bytes, wgmma "
+        f"serialisation warnings): {regs}")
+    assert len(regs) == 2 and all(r[1:] == (0, 0, 0) for r in regs.values()), regs
+    before = K6.launches
+    gen = torch.Generator(device=dev).manual_seed(11)
+    inputs = k6_cases(gen, dev)
     worst, worst_ratio = 0.0, 0.0
     for label, make in inputs:
         q, k, v = make()
@@ -3145,9 +3171,254 @@ def phase11d_clis(dev, counts: dict, tiny_steps: int = 300, tr_n: int = 512) -> 
     assert n_rows == 11, n_rows
 
 
+# ------------------------------------------- slice 12: K6-bwd and training (12)
+
+# K6-bwd's timing shapes (label, batch, tokens, q heads, kv heads, head_dim)
+K6_BWD_SHAPES = (
+    ("calibration batch", 8, 2048, 32, 8, 128),
+    ("GPT-2 calibration batch", 8, 1024, 12, 12, 64),
+    ("OPT-1.3b calibration batch", 8, 2048, 32, 32, 64),
+)
+
+
+def k6_bwd_inputs(q, k, v, gen):
+    """K6's output and stats for q, k, v (the kernel on CUDA) and a bf16
+    cotangent of o's shape from ``gen``."""
+    import torch
+
+    from tgq_torch.kernels import causal_attention as K6
+
+    o, lse = K6._forward(q, k, v, 1.0 / math.sqrt(q.shape[3]), stats=True)
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(torch.bfloat16)
+    return o, lse, do
+
+
+def phase12a_k6_bwd_check(dev, kb: dict, report: str | None = None) -> None:
+    """K6-bwd against its plain version over phase 11a's cases: dq, dk, dv
+    within ``causal_attention_bwd.bwd_tolerance`` ((2^-8 + 2^-12) of each
+    gradient's magnitude for the bf16 p and ds and the f32 order, 2 bf16
+    ulps for the roundings), K6's stats output within 1e-3 of the plain
+    log2-sum-exp; then K6's o bit-identical with the stats output on and
+    off, and two backward launches, a batch and each sequence alone, a head
+    slice and the full launch, all bit for bit.  Logs ptxas's registers and
+    spills of the two kernels."""
+    import torch
+
+    from tgq_torch.kernels import _build
+    from tgq_torch.kernels import causal_attention as K6
+    from tgq_torch.kernels import causal_attention_bwd as KB
+
+    t0 = time.time()
+    regs = k6_ptxas(_build.ptxas_report() if report is None else report, "attention_bwd")
+    log(f"[phase12a] K6-bwd kernels (registers, spill store / load bytes, wgmma "
+        f"serialisation warnings): {regs}")
+    assert len(regs) == 6 or dev.type == "cpu", regs  # dQ and dK / dV at d 16, 64, 128
+    before = (K6.launches, KB.launches)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst, worst_ratio, worst_lse = 0.0, 0.0, 0.0
+    inputs = k6_cases(gen, dev)
+    for label, make in inputs:
+        q, k, v = make()
+        o, lse, do = k6_bwd_inputs(q, k, v, gen)
+        got = KB.flash_causal_attention_bwd(q, k, v, o, lse, do)
+        ref = KB.causal_attention_bwd_plain(q, k, v, o, lse, do)
+        tol = KB.bwd_tolerance(q, k, v, do, ref)
+        errs = [float((g.float() - r).abs().max()) for g, r in zip(got, ref)]
+        ratios = [float(((g.float() - r).abs() / t).max()) for g, r, t in zip(got, ref, tol)]
+        lse_err = float((lse - KB.lse_plain(q, k)).abs().max()) if q.shape[1] else 0.0
+        worst, worst_ratio = max(worst, *errs), max(worst_ratio, *ratios)
+        worst_lse = max(worst_lse, lse_err)
+        log(f"[phase12a] K6-bwd {label}: max|d(dq, dk, dv)| "
+            f"{', '.join(f'{e:.3e}' for e in errs)} (max|dk| {float(ref[1].abs().max()):.3f}), "
+            f"max err / tolerance {', '.join(f'{r:.3f}' for r in ratios)}; stats {lse_err:.2e}")
+        assert all(torch.isfinite(g.float()).all() for g in got), label
+        assert max(ratios) <= 1.0 and lse_err <= 1e-3, (label, ratios, lse_err)
+        del q, k, v, o, lse, do, got, ref, tol
+
+    same_o = True
+    for b, s, h, kv, d in ((2, 300, 4, 2, 16), (2, 1000, 12, 12, 64), (2, 777, 32, 8, 128)):
+        q, k, v = k6_inputs(gen, dev, b, s, h, kv, d)
+        same_o &= bits_equal(K6._forward(q, k, v, d ** -0.5, stats=False)[0],
+                             K6._forward(q, k, v, d ** -0.5, stats=True)[0])
+    q, k, v = k6_inputs(gen, dev, 2, 2048, 32, 8, 128)
+    o, lse, do = k6_bwd_inputs(q, k, v, gen)
+    one, two = (KB.flash_causal_attention_bwd(q, k, v, o, lse, do) for _ in range(2))
+    rep = all(bits_equal(x, y) for x, y in zip(one, two))
+    q, k, v = k6_inputs(gen, dev, 8, 300, 16, 4, 128)
+    o, lse, do = k6_bwd_inputs(q, k, v, gen)
+    full = KB.flash_causal_attention_bwd(q, k, v, o, lse, do)
+    alone = all(all(bits_equal(f[i:i + 1], g) for f, g in zip(full, KB.flash_causal_attention_bwd(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1], lse[i:i + 1], do[i:i + 1])))
+        for i in range(8))
+    q, k, v = k6_inputs(gen, dev, 2, 512, 32, 8, 128)
+    o, lse, do = k6_bwd_inputs(q, k, v, gen)
+    full = KB.flash_causal_attention_bwd(q, k, v, o, lse, do)
+    sliced = True
+    for h0, h1 in ((0, 16), (16, 32), (8, 12)):
+        part = KB.flash_causal_attention_bwd(
+            q[:, :, h0:h1], k[:, :, h0 // 4:h1 // 4], v[:, :, h0 // 4:h1 // 4], o[:, :, h0:h1],
+            lse[:, h0:h1], do[:, :, h0:h1])
+        sliced &= bits_equal(full[0][:, :, h0:h1], part[0]) and all(
+            bits_equal(f[:, :, h0 // 4:h1 // 4], g) for f, g in zip(full[1:], part[1:]))
+    K6.launches, KB.launches = before
+    log(f"[phase12a] K6-bwd against its plain version over {len(inputs)} cases: max|d| "
+        f"{worst:.3e}, max err / tolerance {worst_ratio:.3f}; K6 stats within {worst_lse:.2e} "
+        f"of the plain log2-sum-exp; o with and without stats bit-identical {same_o}; two "
+        f"launches bit-identical {rep}; a batch of 8 equals each sequence alone {alone}; "
+        f"head slices (TP 2 ranks' 16 / 4 heads, 4 heads) equal the full launch's {sliced} "
+        f"({time.time() - t0:.1f} s)")
+    assert same_o and rep and alone and sliced, (same_o, rep, alone, sliced)
+    kb["max_abs_err"] = worst
+
+
+def phase12b_k6_bwd_timing(dev, kb: dict, shapes=K6_BWD_SHAPES, time_it=None) -> None:
+    """K6-bwd a launch (its two kernels) at the calibration, GPT-2 and
+    OPT-1.3b shapes beside its bound (2.5x the forward's bf16 tensor-core
+    operations against q, k, v, o, dO, the stats, dQ, dK and dV's bytes),
+    its plain version and PyTorch's SDPA backward on the same values (GQA
+    heads expanded and the (b, h, s, d) layout made outside the timed calls;
+    the forward run once, its graph kept): the yardstick only, never on the
+    path.  The kernels line takes the calibration batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from tgq_torch.kernels import causal_attention as K6
+    from tgq_torch.kernels import causal_attention_bwd as KB
+
+    time_it = time_it or cuda_ms
+    t0 = time.time()
+    before = (K6.launches, KB.launches)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for label, b, s, h, kv, d in shapes:
+        q, k, v = k6_inputs(gen, dev, b, s, h, kv, d)
+        o, lse, do = k6_bwd_inputs(q, k, v, gen)
+        ms = time_it(lambda: KB.flash_causal_attention_bwd(q, k, v, o, lse, do), reps=5)
+        plain_ms = time_it(lambda: KB.causal_attention_bwd_plain(q, k, v, o, lse, do), reps=1)
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous().requires_grad_()
+        vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous().requires_grad_()
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0 / math.sqrt(d))
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = time_it(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+                         reps=5)
+        flops = 5.0 * d * h * b * s * (s + 1)
+        nbytes = 2.0 * b * s * d * (4 * h + 4 * kv) + 4.0 * b * h * s
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+        log(f"[phase12b] K6-bwd {label} ({b}, {s}, {h}/{kv}, {d}): {ms:.4f} ms a launch, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s; bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of "
+            f"it); plain {plain_ms:.3f} ms; SDPA backward {lib_ms:.4f} ms (K6-bwd / SDPA "
+            f"{ms / lib_ms:.2f})")
+        if label == shapes[0][0]:
+            kb.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del q, k, v, o, lse, do, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+    K6.launches, KB.launches = before
+    log(f"[phase12b] K6-bwd timing {time.time() - t0:.1f} s; {card_line()}")
+
+
+TRAIN_REL_FROB = 0.03  # per-tensor relative Frobenius error, "flash" against "naive"
+
+
+def lm_loss(params, cfg, ids, attn_impl: str):
+    """tiny_train's loss through the staged functions: embed_tokens ->
+    decoder_layer x L -> apply_final_norm -> lm_logits -> f32 log-softmax
+    NLL of the next token."""
+    import torch
+
+    from tgq_torch.models import causal_lm as cl
+
+    x = cl.embed_tokens(params, ids[:, :-1], cfg=cfg)
+    cos, sin = cl.rope_cache(cfg, ids.shape[1] - 1, device=x.device)
+    for lp in params["model"]["layers"]:
+        x = cl.decoder_layer(lp, cfg, x, cos, sin, attn_impl=attn_impl)
+    logits = cl.lm_logits(params, cfg, cl.apply_final_norm(params, cfg, x))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, ids[:, 1:, None]).mean()
+
+
+def tree_leaves(tree, path: str = "") -> list:
+    """[(dotted name, leaf)] of a nested dict / list of tensors."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in tree_leaves(v, f"{path}.{k}" if path else k)]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in tree_leaves(v, f"{path}.{i}")]
+    return [(path, tree)]
+
+
+def flash_training(dev, counts: dict, preset: str, layers: int, batch: int, seq: int,
+                   steps: int = 3, lr: float = 1e-3) -> dict:
+    """One model's training path through ``attn_impl="flash"`` at full
+    width: bf16 weights from ``init_params``, ``batch`` x ``seq`` ids from a
+    numpy seed; every parameter's gradient through "flash" (K6, K6-bwd)
+    against "naive" (autograd of the plain attention) within
+    ``TRAIN_REL_FROB``, then ``steps`` AdamW steps through "flash" on the
+    repeated batch, the loss finite and falling, K6-bwd launched ``layers``
+    times a step (the launch counters set to 0 just before and read just
+    after)."""
+    import numpy as np
+    import torch
+
+    from tgq_torch.kernels import causal_attention_bwd as KB
+    from tgq_torch.models import PRESETS
+    from tgq_torch.models.causal_lm import init_params
+
+    cfg = dataclasses.replace(PRESETS[preset], num_layers=layers)
+    params = init_params(cfg, seed=12, device=dev)
+    leaves = tree_leaves(params)
+    for _, t in leaves:
+        t.requires_grad_()
+    ids = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, size=(batch, seq + 1))).to(dev)
+    t0 = time.time()
+    naive = torch.autograd.grad(lm_loss(params, cfg, ids, "naive"), [t for _, t in leaves])
+    t_naive = time.time() - t0
+    opt = torch.optim.AdamW([t for _, t in leaves], lr=lr)
+    with counted(counts, f"12c {preset} x{layers}",
+                 ("causal_attention", "causal_attention_bwd")) as got:
+        loss = lm_loss(params, cfg, ids, "flash")
+        flash = torch.autograd.grad(loss, [t for _, t in leaves])
+        errs = {name: float((f.double() - n.double()).norm() / n.double().norm().clamp_min(1e-30))
+                for (name, _), f, n in zip(leaves, flash, naive)}
+        del flash, naive
+        losses, walls = [], []
+        for _ in range(steps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.time()
+            opt.zero_grad(set_to_none=True)
+            loss = lm_loss(params, cfg, ids, "flash")
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+            walls.append(time.time() - t1)
+    worst = max(errs, key=errs.get)
+    log(f"[phase12c] {preset} at full width, {layers} layers, {batch} x {seq}: grads through "
+        f"flash against naive, max relative Frobenius error {errs[worst]:.4f} ({worst}; bound "
+        f"{TRAIN_REL_FROB}), median {float(np.median(list(errs.values()))):.4f}; AdamW losses "
+        f"{[round(x, 4) for x in losses]}; s a step {[round(w, 3) for w in walls]} (naive "
+        f"gradient {t_naive:.2f} s); K6-bwd launches {got.get('causal_attention_bwd')}")
+    assert errs[worst] <= TRAIN_REL_FROB, (preset, worst, errs[worst])
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    if dev.type == "cuda":
+        assert got["causal_attention_bwd"] == layers * (steps + 1), got
+    del params, leaves, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"max_rel": errs[worst], "losses": losses, "s_per_step": walls}
+
+
+def phase12c_training(dev, counts: dict, runs=(("qwen3-8b", 2, 4, 2048),
+                                              ("gpt2", 12, 8, 1024))) -> None:
+    """The training path through ``attn_impl="flash"``: Qwen3-8B at full
+    width (2 layers, 4 x 2048) and GPT-2 at full width and depth (8 x
+    1024), each with :func:`flash_training`."""
+    for preset, layers, batch, seq in runs:
+        flash_training(dev, counts, preset, layers, batch, seq)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (all by default)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -3186,6 +3457,10 @@ def main() -> int:
     k6 = {"name": "causal_attention", "route": "cuda",
           "source": "tgq_torch/kernels/csrc/causal_attention.cu",
           "replaces": "tgq/models/causal_lm.py:143", "library_ms": None}
+    kb = {"name": "causal_attention_bwd", "route": "cuda",
+          "source": "tgq_torch/kernels/csrc/causal_attention_bwd.cu",
+          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941, :1287",
+          "library_ms": None}
     counts: dict[str, int] = {}
     k34_readings: dict = {}
     prof7c = p3 = serve7b = None
@@ -3223,7 +3498,14 @@ def main() -> int:
         phase11b_k6_timing(dev, k6)
         phase11d_clis(dev, counts)
         log(f"[phase11] K6 and the slice-9 CLIs: {time.time() - t11:.1f} s")
-    kernels = [k1, k2, k3, k4, k5, k6]
+    if 12 in phases:
+        t12 = time.time()
+        phase12a_k6_bwd_check(dev, kb)
+        phase12b_k6_bwd_timing(dev, kb)
+        phase12c_training(dev, counts)
+        log(f"[phase12] K6-bwd and training through the flash attention: "
+            f"{time.time() - t12:.1f} s")
+    kernels = [k1, k2, k3, k4, k5, k6, kb]
     for k in kernels:
         k["launches"] = counts.get(k["name"], 0)
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):

@@ -40,6 +40,7 @@ def test_no_jax_or_tgq_imports():
             "tgq_torch.cli.trunc_regimes", "tgq_torch.cli.tiny_quality_bench",
             "tgq_torch.cli.boundary_bench", "tgq_torch.cli.reproduce_baseline",
             "tgq_torch.cli.diff_baseline"} <= _walk_names()  # and slice 9's modules
+    assert "tgq_torch.kernels.causal_attention_bwd" in _walk_names()  # and K6-bwd's
 
 
 def test_no_library_attention_in_the_port():

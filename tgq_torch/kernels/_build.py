@@ -31,6 +31,7 @@ SOURCES = {
     "a8_matmul.cu": [],
     "paged_attention.cu": [],
     "causal_attention.cu": [],
+    "causal_attention_bwd.cu": [],
 }
 
 _lib = None
@@ -46,7 +47,9 @@ _SIGNATURES = {
     "tgq_dequant_matmul": ([_P, _I, _L] + [_P] * 4 + [_I, _P] + [_I] * 11 + [_P], _I),
     "tgq_a8_matmul": ([_P] * 6 + [_I] * 10 + [_P], _I),
     "tgq_paged_attention": ([_P] * 15 + [_I] * 11 + [ctypes.c_float, _I, _P], _I),
-    "tgq_causal_attention": ([_P] * 4 + [_L] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P], _I),
+    "tgq_causal_attention": ([_P] * 5 + [_L] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P], _I),
+    "tgq_causal_attention_bwd": ([_P] * 10 + [_L] * 15 + [_I] * 5 + [ctypes.c_float, _I, _P],
+                                 _I),
 }
 
 

@@ -21,14 +21,25 @@ probabilities to bf16 before P·V, as the TPU body does; the plain version
 keeps them in f32.  So the two differ by at most 2^-8 (bf16's relative
 rounding) of Σ_j p_ij·|v_j| per element, plus the output's own bf16
 rounding: :func:`tolerance` states that bound.
+
+Gradients: :class:`FlashCausalAttention` makes K6 differentiable.  When
+grad mode is on and an input requires grad, its forward asks the kernel
+for its stats output as well (each row's log2-sum-exp, K6-bwd's input; o's
+bits do not change) and saves q, k, v, o and the stats; its backward is
+K6-bwd (``causal_attention_bwd.flash_causal_attention_bwd``: two CUDA
+kernels on CUDA tensors, the plain backward on CPU tensors).  Under
+``torch.no_grad()`` (calibration, PPL, equalizers, prefill) nothing is
+saved and no stats are written: the same launch as before.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from tgq_torch.kernels import _build
+from tgq_torch.kernels.causal_attention_bwd import flash_causal_attention_bwd, lse_plain
 
 launches = 0  # kernel launches of flash_causal_attention (CUDA only)
 HEAD_DIMS = (16, 64, 128)  # the kernel's template instances
@@ -94,30 +105,64 @@ def _launch_error(err: int) -> str:
     return f"causal attention launch: CUDA error {err}"
 
 
-def flash_causal_attention(q, k, v, sm_scale: float | None = None):
-    """Causal attention with the contract of :func:`causal_attention_plain`
-    (up to :func:`tolerance`).  CUDA tensors launch the kernel; CPU tensors
-    run the plain version.  Takes any sequence length >= 0 and a softmax
-    scale > 0 (the kernel takes the running max of the unscaled scores)."""
+def _forward(q, k, v, scale: float, stats: bool):
+    """(o, stats or None): K6 on CUDA tensors, the plain version on CPU
+    tensors; ``stats`` asks for the (b, h, s) f32 log2-sum-exp as well."""
     global launches
-    _check(q, k, v)
-    if sm_scale is not None and not sm_scale > 0:
-        raise ValueError(f"causal attention: sm_scale must be > 0 (got {sm_scale})")
     if q.device.type == "cpu":
-        return causal_attention_plain(q, k, v, sm_scale)
+        out = causal_attention_plain(q, k, v, scale)
+        return out, lse_plain(q, k, scale) if stats else None
     if q.device.type != "cuda":
         raise ValueError(f"causal attention: unsupported device {q.device}")
     b, s, h, d = q.shape
-    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if stats else None
     lib = _build.lib()
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     err = lib.tgq_causal_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         b, s, h, k.shape[2], d, float(scale), dev,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(_launch_error(err))
     launches += 1
-    return out
+    return out, lse
+
+
+class FlashCausalAttention(torch.autograd.Function):
+    """K6 with K6-bwd as its gradient (the TPU op's custom_vjp): the
+    forward saves q, k, v, o and K6's stats; the backward returns bf16 dq,
+    dk, dv (dk, dv summed over each GQA group).  Once differentiable, as
+    the upstream rule (higher-order gradients raise)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _forward(q, k, v, scale, stats=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_causal_attention_bwd(q, k, v, out, lse, do, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_causal_attention(q, k, v, sm_scale: float | None = None):
+    """Causal attention with the contract of :func:`causal_attention_plain`
+    (up to :func:`tolerance`).  CUDA tensors launch the kernel; CPU tensors
+    run the plain version.  Takes any sequence length >= 0 and a softmax
+    scale > 0 (the kernel takes the running max of the unscaled scores).
+    Differentiable (:class:`FlashCausalAttention`) when grad mode is on and
+    an input requires grad."""
+    _check(q, k, v)
+    if sm_scale is not None and not sm_scale > 0:
+        raise ValueError(f"causal attention: sm_scale must be > 0 (got {sm_scale})")
+    scale = 1.0 / math.sqrt(q.shape[3]) if sm_scale is None else float(sm_scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashCausalAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale, stats=False)[0]

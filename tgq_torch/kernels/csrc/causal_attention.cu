@@ -86,6 +86,7 @@ struct Args {
   const bf16* k;
   const bf16* v;
   bf16* o;
+  float* lse;  // (B, H, S) stats output or null: each row's m·c + log2 l
   long sqb, sqs, sqh, skb, sks, skh, svb, svs, svh;  // element strides
   int S, H, KV;
   float scale_log2;  // sm_scale · log2(e)
@@ -121,6 +122,7 @@ struct Dims {
   int S, H, KV, B;
   int nq;  // 128-row query tiles a sequence
   float scale_log2;
+  float* lse;  // the stats output or null
 };
 
 // tile i of the block's walk: query tile qt of head h, batch b, the longest
@@ -139,6 +141,15 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// one f32 store from the threads whose `pred` is true (predicated inside the
+// asm, so the caller's control flow stays uniform)
+__device__ __forceinline__ void st_global_if(float* p, float v, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.f32 [%0], %1;\n}\n" ::"l"(p),
+      "f"(v), "r"((int)pred)
+      : "memory");
 }
 
 // softmax of one S tile of N / 4 8-key chunks (the first 2N keys) in place:
@@ -371,6 +382,20 @@ struct Consumer {
     }
     mbar_arrive_if(bar + P::QE + 8 * qb, t == 0);
   }
+
+  // the stats output (K6-bwd recomputes the probabilities from it): each
+  // row's log2-sum-exp in the exponent's own domain, m·c + log2 l, after
+  // store's shuffles, from the first lane of each quad by a predicated
+  // store (no branch between the wgmmas of one tile and the next's)
+  __device__ __forceinline__ void stats(const Dims& a, int b, int h, int qt) {
+    if (a.lse == nullptr) return;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int row = qt * QM + r + 8 * x;
+      st_global_if(a.lse + ((long)b * a.H + h) * a.S + row, m[x] * scale_log2 + log2f(l[x]),
+                   tig == 0 && row < a.S);
+    }
+  }
 };
 
 template <int D>
@@ -468,6 +493,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     w.tile(qt, n, i + (int)gridDim.x < n_tiles);
     n += qt + 1;
     w.store(&to, b, h, qt, a.S, qb);
+    w.stats(a, b, h, qt);
     w.reset();
   }
 }
@@ -505,7 +531,7 @@ int launch_wgmma(const Args& a, int B, int device, cudaStream_t stream) {
   if (r != 0) return -(3000 + r);
   r = encode_bshd(&to, a.o, B, a.S, a.H, D, (long)a.S * a.H * D, (long)a.H * D, D, QM / 2);
   if (r != 0) return -(4000 + r);
-  const Dims dims{a.S, a.H, a.KV, B, (int)nq, a.scale_log2};
+  const Dims dims{a.S, a.H, a.KV, B, (int)nq, a.scale_log2, a.lse};
   kern<<<grid, THREADS, P::SMEM, stream>>>(tq, tk, tv, to, dims);
   return (int)cudaGetLastError();
 }
@@ -704,6 +730,8 @@ __global__ void __launch_bounds__(NT) causal_attention_kernel(const Args a) {
     const int row = r0 + half * 8;
     if (row >= a.S) continue;
     const float l = half ? l1 : l0;
+    if (a.lse != nullptr && tig == 0)  // stats: the scores were scaled, so m is m·c here
+      a.lse[((long)b * a.H + h) * a.S + row] = (half ? m1 : m0) + log2f(l);
     uint32_t* dst = reinterpret_cast<uint32_t*>(ob + row * orow);
 #pragma unroll
     for (int n = 0; n < NF; ++n)
@@ -728,13 +756,16 @@ extern "C" {
 
 // K6.  q (B, S, H, D), k and v (B, S, KV, D) bf16 with element strides
 // (batch, position, head) and a contiguous feature axis, every row 16-byte
-// aligned; o (B, S, H, D) bf16 contiguous.  D is 16, 64 or 128; H a
-// multiple of KV; sm_scale > 0.  Launches on `stream`; returns the CUDA error code
+// aligned; o (B, S, H, D) bf16 contiguous; lse null, or (B, H, S) f32
+// contiguous for the stats output (each row's log2-sum-exp of the scaled
+// scores, m·c + log2 l, c = sm_scale·log2 e: K6-bwd's input; o's bits are
+// the same either way).  D is 16, 64 or 128; H a multiple of KV; sm_scale > 0.
+// Launches on `stream`; returns the CUDA error code
 // (0 = launched), or -(1000·t + r) when TMA refuses the layout of tensor t
 // (1 q, 2 k, 3 v, 4 o) with the driver's CUresult r.
-int tgq_causal_attention(const void* q, const void* k, const void* v, void* o, long sqb,
-                         long sqs, long sqh, long skb, long sks, long skh, long svb, long svs,
-                         long svh, int B, int S, int H, int KV, int D, float sm_scale,
+int tgq_causal_attention(const void* q, const void* k, const void* v, void* o, void* lse,
+                         long sqb, long sqs, long sqh, long skb, long sks, long skh, long svb,
+                         long svs, long svh, int B, int S, int H, int KV, int D, float sm_scale,
                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -743,8 +774,8 @@ int tgq_causal_attention(const void* q, const void* k, const void* v, void* o, l
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-               static_cast<const bf16*>(v), static_cast<bf16*>(o), sqb, sqs, sqh, skb, sks,
-               skh, svb, svs, svh, S, H, KV, sm_scale * LOG2E};
+               static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
+               sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, S, H, KV, sm_scale * LOG2E};
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 16: return launch_mma<16>(a, B, device, s);
