@@ -135,13 +135,15 @@ Phases:
      stats output against the plain log2-sum-exp, K6's o bit-identical with
      the stats output on and off, two backward launches, a batch and each
      sequence alone, head slices and the full launch, all bit for bit; the
-     two kernels' ptxas registers and spills; (b) timed at the calibration,
-     GPT-2 and OPT-1.3b shapes beside its bound, its plain version and the
-     SDPA backward (the yardstick only); (c) the LM loss through the staged
-     functions with ``attn_impl="flash"`` at Qwen3-8B full width (2 layers,
-     4 x 2048) and GPT-2 (12 layers, 8 x 1024): every parameter's gradient
-     against "naive" within ``TRAIN_REL_FROB``, then 3 AdamW steps with the
-     loss falling, K6-bwd launched once a layer a step, the seconds a step.
+     six kernels' ptxas registers, spills and wgmma serialisation warnings
+     (none allowed); (b) timed at the calibration, GPT-2 and OPT-1.3b shapes
+     beside the first design's (mma.sync), its bound (counted and executed
+     TFLOP/s), its plain version and the SDPA backward (the yardstick
+     only); (c) the LM loss through the staged functions with
+     ``attn_impl="flash"`` at Qwen3-8B full width (2 layers, 4 x 2048) and
+     GPT-2 (12 layers, 8 x 1024): every parameter's gradient against
+     "naive" within ``TRAIN_REL_FROB``, then 3 AdamW steps with the loss
+     falling, K6-bwd launched once a layer a step, the seconds a step.
 
 Every mismatch raises; the script exits 0 only if every phase passed.
 The second-to-last line is a JSON object with one entry per kernel, the
@@ -3179,6 +3181,29 @@ K6_BWD_SHAPES = (
     ("GPT-2 calibration batch", 8, 1024, 12, 12, 64),
     ("OPT-1.3b calibration batch", 8, 2048, 32, 32, 64),
 )
+# the first design's (mma.sync, no wgmma) ms at those shapes, NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md section 6)
+K6_BWD_FIRST_DESIGN_MS = {"calibration batch": 4.4970, "GPT-2 calibration batch": 0.2605,
+                          "OPT-1.3b calibration batch": 2.0826}
+
+
+def k6_bwd_executed_flops(b: int, s: int, h: int, kv: int, d: int) -> float:
+    """bf16 tensor-core operations the head_dim 64 / 128 kernels issue: the
+    dQ kernel's 64 x 64 steps (S, dP, dS·K) up to each 64-row half's
+    diagonal, the dK / dV kernel's 64-key x BQ-row steps (Sᵀ, dPᵀ, Pᵀ·dO,
+    dSᵀ·Q) from each 128-key tile's first key, its skipped steps left out;
+    rows past the end count as the kernels compute them."""
+    from tgq_torch.kernels import causal_attention_bwd as KB
+
+    bq = KB.DKV_STEP_ROWS[d]
+    nt = -(-s // 128)
+    dq = sum((2 * qt + 1 + c) * 64 * 64 for qt in range(nt) for c in (0, 1))
+    dkv = 0
+    for kt in range(nt):
+        key0 = 128 * kt
+        steps = -(-(s - key0) // bq)
+        dkv += sum(64 * bq for c in (0, 1) for j in range(steps) if (j + 1) * bq > 64 * c)
+    return 2.0 * d * b * h * (3 * dq + 4 * dkv)
 
 
 def k6_bwd_inputs(q, k, v, gen):
@@ -3200,8 +3225,10 @@ def phase12a_k6_bwd_check(dev, kb: dict, report: str | None = None) -> None:
     ulps for the roundings), K6's stats output within 1e-3 of the plain
     log2-sum-exp; then K6's o bit-identical with the stats output on and
     off, and two backward launches, a batch and each sequence alone, a head
-    slice and the full launch, all bit for bit.  Logs ptxas's registers and
-    spills of the two kernels."""
+    slice and the full launch, all bit for bit.  ``report`` (ptxas -v of the
+    build) must show the six kernels (the wgmma dQ and dK / dV kernels at
+    head_dim 64 and 128, the mma.sync ones at 16) free of spills and of
+    serialised wgmmas."""
     import torch
 
     from tgq_torch.kernels import _build
@@ -3212,7 +3239,11 @@ def phase12a_k6_bwd_check(dev, kb: dict, report: str | None = None) -> None:
     regs = k6_ptxas(_build.ptxas_report() if report is None else report, "attention_bwd")
     log(f"[phase12a] K6-bwd kernels (registers, spill store / load bytes, wgmma "
         f"serialisation warnings): {regs}")
-    assert len(regs) == 6 or dev.type == "cpu", regs  # dQ and dK / dV at d 16, 64, 128
+    # dQ and dK / dV: wgmma at d 64 and 128, mma.sync at 16; no spill, no
+    # serialised wgmma
+    assert len(regs) == 6 or dev.type == "cpu", regs
+    assert sum("wgmma" in name for name in regs) == 4 or dev.type == "cpu", regs
+    assert all(r[1:] == (0, 0, 0) for r in regs.values()), regs
     before = (K6.launches, KB.launches)
     gen = torch.Generator(device=dev).manual_seed(13)
     worst, worst_ratio, worst_lse = 0.0, 0.0, 0.0
@@ -3273,12 +3304,14 @@ def phase12a_k6_bwd_check(dev, kb: dict, report: str | None = None) -> None:
 
 def phase12b_k6_bwd_timing(dev, kb: dict, shapes=K6_BWD_SHAPES, time_it=None) -> None:
     """K6-bwd a launch (its two kernels) at the calibration, GPT-2 and
-    OPT-1.3b shapes beside its bound (2.5x the forward's bf16 tensor-core
-    operations against q, k, v, o, dO, the stats, dQ, dK and dV's bytes),
-    its plain version and PyTorch's SDPA backward on the same values (GQA
-    heads expanded and the (b, h, s, d) layout made outside the timed calls;
-    the forward run once, its graph kept): the yardstick only, never on the
-    path.  The kernels line takes the calibration batch."""
+    OPT-1.3b shapes beside the first design's, its bound (2.5x the
+    forward's bf16 tensor-core operations against q, k, v, o, dO, the stats,
+    dQ, dK and dV's bytes; the TFLOP/s both of those and of the operations
+    the kernels issue), its plain version and PyTorch's SDPA backward on
+    the same values (GQA heads expanded and the (b, h, s, d) layout made
+    outside the timed calls; the forward run once, its graph kept): the
+    yardstick only, never on the path.  The kernels line takes the
+    calibration batch."""
     import torch
     import torch.nn.functional as F
 
@@ -3304,10 +3337,13 @@ def phase12b_k6_bwd_timing(dev, kb: dict, shapes=K6_BWD_SHAPES, time_it=None) ->
         flops = 5.0 * d * h * b * s * (s + 1)
         nbytes = 2.0 * b * s * d * (4 * h + 4 * kv) + 4.0 * b * h * s
         b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
-        log(f"[phase12b] K6-bwd {label} ({b}, {s}, {h}/{kv}, {d}): {ms:.4f} ms a launch, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s; bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of "
-            f"it); plain {plain_ms:.3f} ms; SDPA backward {lib_ms:.4f} ms (K6-bwd / SDPA "
-            f"{ms / lib_ms:.2f})")
+        first = K6_BWD_FIRST_DESIGN_MS[label]
+        log(f"[phase12b] K6-bwd {label} ({b}, {s}, {h}/{kv}, {d}): {ms:.4f} ms a launch "
+            f"[first design {first:.4f}; {first / ms:.2f}x], {flops / ms / 1e9:.1f} TFLOP/s "
+            f"counted, "
+            f"{k6_bwd_executed_flops(b, s, h, kv, d) / ms / 1e9:.1f} executed; bound "
+            f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it); plain {plain_ms:.3f} ms; SDPA "
+            f"backward {lib_ms:.4f} ms (K6-bwd / SDPA {ms / lib_ms:.2f})")
         if label == shapes[0][0]:
             kb.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del q, k, v, o, lse, do, qt, kt, vt, ot, dot

@@ -17,15 +17,18 @@ Tolerance (``causal_attention_bwd.bwd_tolerance``, per element): (2^-8 +
 |q| or |k| for dK and dQ) plus 2 bf16 ulps of the reference; against the
 JAX package (``jax=True``) also 3·2^-8 for its own forward's o in di and
 group·2^-8 of dK / dV for its per-head bf16 gradients summed over each GQA
-group after its kernels.  The emulation of the CUDA kernels' design (tile
-order, bf16 p and ds, f32 accumulators, the in-kernel GQA sum, the tiles
-above the diagonal skipped) is held to the same bound here, and three
-planted faults (di dropped, the diagonal mask off by one, a group summed
-into the wrong kv head) exceed it tenfold; the kernels themselves are held
-to it on the card (``chip_smoke.py`` phase 12a).
+group after its kernels.  The emulation of the CUDA kernels' walk (tiles,
+steps and their order, bf16 p and ds, f32 accumulators, the in-kernel GQA
+sum, the masked steps and the skipped ones) is held to the same bound here,
+and four planted faults (di dropped, the diagonal mask off by one, a group
+summed into the wrong kv head, the masked steps skipped) exceed it tenfold;
+the kernels themselves are held to it on the card (``chip_smoke.py`` phase
+12a).
 """
 import functools
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -136,22 +139,28 @@ def test_plain_backward_equals_autograd_of_plain_forward(b, s, h, kv, d):
 
 
 def _emulate_bwd(q, k, v, o, lse, do, fault=None):
-    """K6-bwd's arithmetic in torch, the design the CUDA kernels implement.
-    dQ: 64-row query tiles over the 64-key tiles up to the diagonal (only
-    the diagonal tile masked), p = 2^(s·c - L) from the forward's stats,
-    ds = (dp - di)·p·sm_scale rounded to bf16, f32 accumulation.  dK / dV: a
-    64-key tile of one kv head walks its group's query heads, each from the
-    tile's first key to the end in steps of 32 rows (d 128) or 64, bf16 p
-    and ds, the group summed in f32, one rounding at the end.  ``fault``
-    plants a defect: "no_di" (di dropped), "mask_off_by_one" (the diagonal
-    masked too) or "wrong_group" (kv head g sums the query heads of group
-    g + 1)."""
+    """K6-bwd's arithmetic in torch, the walk the CUDA kernels take.  dQ:
+    query rows in 64-row groups (at head_dim 64 and 128 a consumer's half of
+    a 128-row tile; at 16 a 64-row tile) over the 64-key steps up to the
+    group's diagonal step, which alone is masked (the tile's last step,
+    every score masked for its first half, is skipped); p = 2^(s·c - L) from
+    the forward's stats, ds = (dp - di)·p·sm_scale rounded to bf16, f32
+    accumulation.  dK / dV: key tiles of 128 keys (64 at head_dim 16), each
+    64-key half walking the group's query heads in order, each in steps of
+    ``DKV_STEP_ROWS[d]`` rows from the tile's first key to the end; a step
+    whose rows all come before the half's first key is skipped, one that
+    overlaps its keys masked; bf16 p and ds, the group summed in f32, one
+    rounding at the end.  ``fault`` plants a defect: "no_di" (di dropped),
+    "mask_off_by_one" (the diagonal masked too), "wrong_group" (kv head g
+    sums the query heads of group g + 1) or "diag_skipped" (the dK / dV
+    walk skips the masked steps too)."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     rep = h // kv
     scale = 1.0 / math.sqrt(d)
     c = scale * LOG2E
-    bq = 32 if d == 128 else 64
+    bq = KB.DKV_STEP_ROWS[d]
+    tile = 64 if d == 16 else 128  # keys a dK / dV tile
     qf, kf, vf, gf = q.float(), k.float(), v.float(), do.float()
     di = (o.float() * gf).sum(-1)  # (b, s, h)
     if fault == "no_di":
@@ -187,23 +196,26 @@ def _emulate_bwd(q, k, v, o, lse, do, fault=None):
         heads = (heads // rep + 1) % kv * rep + heads % rep
     qg, gg, lg, dg = qf[:, :, heads], gf[:, :, heads], lrow[:, :, heads], di[:, :, heads]
     dk, dv = torch.zeros((b, s, h, d)), torch.zeros((b, s, h, d))
-    for k0 in range(0, s, 64):
-        keys = torch.arange(k0, min(k0 + 64, s))
-        for r0 in range(k0, s, bq):
-            rows = torch.arange(r0, min(r0 + bq, s))
-            st = torch.einsum("bqhd,bkhd->bhqk", qg[:, rows], kx[:, keys])
-            p = torch.exp2(st * c - lg[:, rows].permute(0, 2, 1)[..., None])
-            if r0 < k0 + 64:
-                p = masked(p, keys, rows)
-            dpt = torch.einsum("bqhd,bkhd->bhqk", gg[:, rows], vx[:, keys])
-            ds = (dpt - dg[:, rows].permute(0, 2, 1)[..., None]) * p * scale
-            dv[:, keys] += torch.einsum("bhqk,bqhd->bkhd", bf(p), gg[:, rows])
-            dk[:, keys] += torch.einsum("bhqk,bqhd->bkhd", bf(ds), qg[:, rows])
+    for key0 in range(0, s, tile):
+        for kc in range(key0, min(key0 + tile, s), 64):  # a consumer's 64 keys
+            keys = torch.arange(kc, min(kc + 64, s))
+            for r0 in range(key0, s, bq):
+                if r0 + bq <= kc or (fault == "diag_skipped" and r0 < kc + 64):
+                    continue  # every score of the step is masked
+                rows = torch.arange(r0, min(r0 + bq, s))
+                st = torch.einsum("bqhd,bkhd->bhqk", qg[:, rows], kx[:, keys])
+                p = torch.exp2(st * c - lg[:, rows].permute(0, 2, 1)[..., None])
+                if r0 < kc + 64:
+                    p = masked(p, keys, rows)
+                dpt = torch.einsum("bqhd,bkhd->bhqk", gg[:, rows], vx[:, keys])
+                ds = (dpt - dg[:, rows].permute(0, 2, 1)[..., None]) * p * scale
+                dv[:, keys] += torch.einsum("bhqk,bqhd->bkhd", bf(p), gg[:, rows])
+                dk[:, keys] += torch.einsum("bhqk,bqhd->bkhd", bf(ds), qg[:, rows])
     dk, dv = (x.reshape(b, s, kv, rep, d).sum(dim=3) for x in (dk, dv))
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
-FAULTS = ("no_di", "mask_off_by_one", "wrong_group")
+FAULTS = ("no_di", "mask_off_by_one", "wrong_group", "diag_skipped")
 
 
 @pytest.mark.parametrize("d", [16, 64, 128])
@@ -219,11 +231,12 @@ def test_kernel_design_matches_tpu_backward_and_faults_caught(d):
         assert max(bad) > 10.0, (fault, bad)
 
 
-@pytest.mark.parametrize("s", [1, 65, 127, 200, 300])
+@pytest.mark.parametrize("s", [1, 65, 127, 128, 129, 200, 256, 300])
 @pytest.mark.parametrize("d", [64, 128])
 def test_kernel_design_within_tolerance_and_faults_caught(s, d):
-    """Ragged lengths (the 64-row tiles' and 32-row steps' edges) against
-    the plain backward on K6's own forward."""
+    """Ragged lengths (the edges of the 64-row groups, the 128-row and
+    128-key tiles and the 32-row steps) against the plain backward on K6's
+    own forward."""
     q, k, v, do = _torch(_arrays(5 + s + d, 2, s, 8, 2, d, q_scale=3.0))
     o, lse = K6._forward(q, k, v, 1.0 / math.sqrt(d), stats=True)
     ref = KB.causal_attention_bwd_plain(q, k, v, o, lse, do)
@@ -234,6 +247,16 @@ def test_kernel_design_within_tolerance_and_faults_caught(s, d):
         for fault in FAULTS:
             bad = _ratios(_emulate_bwd(q, k, v, o, lse, do, fault), ref, tol)
             assert max(bad) > 10.0, (fault, bad)
+
+
+def test_step_rows_match_the_kernel_source():
+    """The emulation's dK / dV step depth is the CUDA kernels': KvPlan::BQ
+    (head_dim 64 and 128) and the mma.sync body's Tiles::BQ (16)."""
+    src = (Path(KB.__file__).parent / "csrc" / "causal_attention_bwd.cu").read_text()
+    d128, d64 = map(int, re.search(r"static constexpr int BQ = D == 128 \? (\d+) : (\d+);\n",
+                                   src).groups())
+    assert "static constexpr int BQ = D == 128 ? 32 : 64;  // query rows a dK / dV step" in src
+    assert KB.DKV_STEP_ROWS == {16: 64, 64: d64, 128: d128}
 
 
 def test_grads_through_strided_views_and_head_slices():

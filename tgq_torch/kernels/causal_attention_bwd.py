@@ -10,6 +10,15 @@ backward rule, ``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``).
 ``causal_attention_bwd_plain`` for CPU tensors.  The autograd function
 around K6 (``causal_attention.FlashCausalAttention``) calls it.
 
+At head_dim 64 and 128 both kernels are built for Hopper as K6 is:
+persistent blocks, one an SM, in which a producer warpgroup loads tiles by
+TMA (4-D tensor maps of q, k, v and do, encoded at every launch from their
+strides) and two consumer warpgroups run every product on ``wgmma``.  The
+dQ kernel walks 128-row query tiles in 64-key steps; the dK / dV kernel
+walks 128-key tiles in steps of :data:`DKV_STEP_ROWS` query rows over each
+GQA group's heads.  head_dim 16 keeps an ``mma.sync`` body.  A layout that
+TMA refuses raises; nothing falls back.
+
 The forward saves its output o and its stats: each row's log2-sum-exp of
 the scaled scores, L_i = log2 Σ_j 2^(s_ij·c) with c = sm_scale·log2 e
 (K6's stats output, in the kernel's own exponent domain), so that
@@ -31,6 +40,9 @@ from tgq_torch.kernels import _build
 
 launches = 0  # launches of flash_causal_attention_bwd's kernel pair (CUDA only)
 LOG2E = math.log2(math.e)
+# query rows a step of the dK / dV kernel walks, by head_dim (KvPlan::BQ in
+# csrc/causal_attention_bwd.cu; head_dim 16's mma.sync body steps 64 rows)
+DKV_STEP_ROWS = {16: 64, 64: 64, 128: 32}
 
 
 def _scores(q, k, scale: float):
@@ -129,6 +141,17 @@ def bwd_tolerance(q, k, v, do, ref, sm_scale: float | None = None, jax: bool = F
                  for cc, mag, r in ((cq, mag_q, ref[0]), (ck, mag_k, ref[1]), (cv, mag_v, ref[2])))
 
 
+def _launch_error(err: int) -> str:
+    """The C entry's code as a message: -(1000·t + r) is TMA's refusal of
+    tensor t's layout (1 q, 2 k, 3 v, 4 do, 5 dq, 6 dk, 7 dv) with the
+    driver's CUresult r."""
+    if err < 0:
+        t, r = divmod(-err, 1000)
+        name = {1: "q", 2: "k", 3: "v", 4: "do", 5: "dq", 6: "dk", 7: "dv"}.get(t, "?")
+        return f"causal attention backward: TMA refused the layout of {name} (CUresult {r})"
+    return f"causal attention backward launch: CUDA error {err}"
+
+
 def _rows_ok(t) -> bool:
     return t.stride(3) == 1 and not any(st % 8 for st in t.stride()[:3]) and t.data_ptr() % 16 == 0
 
@@ -168,6 +191,6 @@ def flash_causal_attention_bwd(q, k, v, o, stats, do, sm_scale: float | None = N
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *do.stride()[:3],
         b, s, h, kv, d, float(scale), dev, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"causal attention backward launch: CUDA error {err}")
+        raise RuntimeError(_launch_error(err))
     launches += 1
     return dq, dk, dv

@@ -29,6 +29,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(src_bytes));
 }
+// 4 bytes global -> shared (a shared-memory address); src_bytes 0 writes a zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

@@ -57,6 +57,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// one arrival when every cp.async this thread issued before it has landed
+// (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
 // ---- TMA: fetch a tensor map (a kernel parameter) ahead of its first use
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -94,6 +100,27 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 __device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint4 lds_u32x4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
 }
 
 // ---- register reallocation between warpgroups (all 128 threads execute it)
@@ -146,6 +173,16 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
 
 // keep the compiler from moving accesses to wgmma accumulators across the
 // wgmma fences, commits and waits (an empty asm that "reads and writes" them)
+__device__ __forceinline__ void fence_regs(float (&d)[16]) {
+  asm volatile(""
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+                 "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+               :
+               : "memory");
+}
+
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
   asm volatile(""
                : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
@@ -185,7 +222,24 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
   asm volatile("" : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]) : : "memory");
 }
 
-// the four products K6 uses
+// the products K6 and K6-bwd use
+
+// D (64 x 32, f32) = A·B, plus D if `accumulate`: A (64 x 16) and B (32 x 16)
+// from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 // D (64 x 64, f32) = A·B, plus D if `accumulate`: A (64 x 16) and B (64 x 16)
 // from shared memory, both K-major
@@ -305,6 +359,61 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D (64 x N, f32) = A·B, plus D if `accumulate`, N = 2·len(d): A (64 x 16
+// bf16) in registers as wgmma_rs_n64 takes it; B (N x 16) from shared
+// memory, K-major (no transpose)
+template <int L>
+__device__ __forceinline__ void wgmma_rs_kb(float (&d)[L], const uint32_t (&a)[4], uint64_t b,
+                                            int accumulate) {
+  static_assert(L == 16 || L == 32, "m64n32k16 or m64n64k16");
+  if constexpr (L == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+}
+
+// the register A operand (the mma.m16n8k16 A fragment) of k-step kk for
+// this warp's 16 rows row0 .. row0 + 15 (row0 a multiple of 8) of a tile in
+// the 128-byte swizzle, boxes of 64 features `box` bytes apart: ldmatrix's
+// four matrices are rows +0 / +8 at features 16kk + 0 / + 8
+__device__ __forceinline__ void ldsm_a_sw128(uint32_t (&r)[4], uint32_t tile, uint32_t box,
+                                             int row0, int kk, int lane) {
+  const int mi = lane / 8, row = row0 + (mi % 2) * 8 + lane % 8;
+  const int chunk = (kk % 4) * 2 + mi / 2;
+  const uint32_t addr = tile + (kk / 4) * box + row * 128 + ((chunk ^ (row % 8)) * 16);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 // ---- host: TMA tensor maps
