@@ -17,6 +17,14 @@ other ranks.  Every rank samples from the same gathered logits with a
 generator seeded alike, so every rank holds the same tokens; a decode
 chunk of more than one step runs in chunk-window mode
 (``tgq_torch.serve.decode``).
+
+Under a recording ``torch.profiler`` each tick's host work is a
+``tgq.engine.*`` span (``tgq_torch.utils.profiling.span``): ``step``
+around the tick; inside it ``admit``, ``prefill_dispatch``,
+``prefill_collect``, ``schedule`` (a decode chunk's page tables and
+inputs), ``decode_dispatch`` (enqueueing the chunk's launches), ``fetch``
+(waiting for its tokens) and ``fold`` (appending them, retiring).  No span
+is opened inside a chunk.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from tgq_torch.parallel.mesh import (
 from tgq_torch.serve.decode import decode_steps, fuse_packed_projections, prefill_batch
 from tgq_torch.serve.kv_cache import PagedKVCache, PageTable, host_to_device
 from tgq_torch.utils.precision import resolve_device
+from tgq_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -181,6 +190,8 @@ class Engine:
         self._next_rid = 0
         self.steps = 0
         self.tokens_emitted = 0
+        self.chunks = 0        # decode chunks dispatched
+        self.spec_chunks = 0   # of which dispatched before the previous chunk's fetch
         self.decode_wall_s = 0.0   # decode dispatch + token fetch
         self.prefill_wall_s = 0.0  # prefill dispatch + first-token fetch
         self._pending: Optional[_Chunk] = None
@@ -211,10 +222,11 @@ class Engine:
         """One tick: admission, then (unless more of the queue can be
         admitted right now) one decode chunk.  Returns the requests that
         finished this tick; ``submit`` may be called between ticks."""
-        self._admit()
-        if self._can_admit_more():
-            return []
-        return self._decode_tick()
+        with span("engine.step"):
+            self._admit()
+            if self._can_admit_more():
+                return []
+            return self._decode_tick()
 
     def run(self) -> list[Request]:
         """Drive until queue and slots are empty; returns finished reqs."""
@@ -235,70 +247,73 @@ class Engine:
         most one new chunk of head-of-queue prompts that pad to the same
         page count (bounded by free slots, pages and
         ``prefill_chunk_tokens``), without waiting for it."""
-        page = self.scfg.page_size
-        while len(self._pf) >= 2:
-            self._collect_prefill()
-        if not self.queue:
-            return
-        free = [s for s in range(self.scfg.max_slots) if self.slots[s] is None]
-        if not free:
-            return
-        head_pages = self.pt.pages_needed(len(self.queue[0].prompt))
-        cap_tok = self.scfg.prefill_chunk_tokens or 0
-        group: list[Request] = []
-        budget = self.pt.num_free
-        for req in self.queue:
-            need = self.pt.pages_needed(len(req.prompt) + 1)
-            if (self.pt.pages_needed(len(req.prompt)) != head_pages
-                    or need > budget or len(group) >= len(free)
-                    or (group and cap_tok
-                        and (len(group) + 1) * head_pages * page > cap_tok)):
-                break
-            group.append(req)
-            budget -= need
-        if not group:
-            return
-        b = 1 << (len(group).bit_length() - 1)  # power-of-two batch
-        group = group[:b]
-        t0 = time.time()
-        pad = head_pages * page
-        ids = np.zeros((b, pad), np.int64)
-        true_len = np.zeros((b,), np.int64)
-        temps = np.zeros((b,), np.float32)
-        slot_pages = np.zeros((b, head_pages), np.int64)
-        slots = free[:b]
-        for i, (s, req) in enumerate(zip(slots, group)):
-            self.queue.popleft()
-            ids[i, :len(req.prompt)] = req.prompt
-            true_len[i] = len(req.prompt)
-            temps[i] = req.temperature if req.temperature is not None else self.scfg.temperature
-            slot_pages[i] = self.pt.alloc_slot(s, len(req.prompt))
-            self.slots[s] = req
-        with serving_mesh_scope(self.mesh), collective_phase("prefill"):
-            toks, self.cache = prefill_batch(
-                self.params, self.cache, self.run_cfg, self._dev(slot_pages), self._dev(ids),
-                self._dev(true_len), self._dev(temps), self.gen,
-                greedy_only=bool((temps == 0).all()))
-        self.prefill_wall_s += time.time() - t0
-        self._pf.append(_PrefillChunk(toks, list(zip(slots, group))))
-        self._staging.update(slots)
+        with span("engine.admit"):
+            page = self.scfg.page_size
+            while len(self._pf) >= 2:
+                self._collect_prefill()
+            if not self.queue:
+                return
+            free = [s for s in range(self.scfg.max_slots) if self.slots[s] is None]
+            if not free:
+                return
+            head_pages = self.pt.pages_needed(len(self.queue[0].prompt))
+            cap_tok = self.scfg.prefill_chunk_tokens or 0
+            group: list[Request] = []
+            budget = self.pt.num_free
+            for req in self.queue:
+                need = self.pt.pages_needed(len(req.prompt) + 1)
+                if (self.pt.pages_needed(len(req.prompt)) != head_pages
+                        or need > budget or len(group) >= len(free)
+                        or (group and cap_tok
+                            and (len(group) + 1) * head_pages * page > cap_tok)):
+                    break
+                group.append(req)
+                budget -= need
+            if not group:
+                return
+            b = 1 << (len(group).bit_length() - 1)  # power-of-two batch
+            group = group[:b]
+            t0 = time.time()
+            pad = head_pages * page
+            ids = np.zeros((b, pad), np.int64)
+            true_len = np.zeros((b,), np.int64)
+            temps = np.zeros((b,), np.float32)
+            slot_pages = np.zeros((b, head_pages), np.int64)
+            slots = free[:b]
+            for i, (s, req) in enumerate(zip(slots, group)):
+                self.queue.popleft()
+                ids[i, :len(req.prompt)] = req.prompt
+                true_len[i] = len(req.prompt)
+                temps[i] = req.temperature if req.temperature is not None else self.scfg.temperature
+                slot_pages[i] = self.pt.alloc_slot(s, len(req.prompt))
+                self.slots[s] = req
+            with span("engine.prefill_dispatch"), serving_mesh_scope(self.mesh), \
+                    collective_phase("prefill"):
+                toks, self.cache = prefill_batch(
+                    self.params, self.cache, self.run_cfg, self._dev(slot_pages), self._dev(ids),
+                    self._dev(true_len), self._dev(temps), self.gen,
+                    greedy_only=bool((temps == 0).all()))
+            self.prefill_wall_s += time.time() - t0
+            self._pf.append(_PrefillChunk(toks, list(zip(slots, group))))
+            self._staging.update(slots)
 
     def _collect_prefill(self) -> None:
         """Fetch the oldest in-flight prefill chunk's first tokens (a real
         device sync) and make its slots decodable."""
-        chunk = self._pf.popleft()
-        t0 = time.time()
-        toks = chunk.toks.cpu().numpy()
-        now = time.time()
-        self.prefill_wall_s += now - t0
-        for i, (s, req) in enumerate(chunk.group):
-            self._staging.discard(s)
-            tok = int(toks[i])
-            req.output.append(tok)
-            req.first_token_t = now
-            self.tokens_emitted += 1
-            if self._finished(req, tok):
-                self._retire(s)
+        with span("engine.prefill_collect"):
+            chunk = self._pf.popleft()
+            t0 = time.time()
+            toks = chunk.toks.cpu().numpy()
+            now = time.time()
+            self.prefill_wall_s += now - t0
+            for i, (s, req) in enumerate(chunk.group):
+                self._staging.discard(s)
+                tok = int(toks[i])
+                req.output.append(tok)
+                req.first_token_t = now
+                self.tokens_emitted += 1
+                if self._finished(req, tok):
+                    self._retire(s)
 
     def _finished(self, req: Request, tok: int) -> bool:
         if self.scfg.eos_id is not None and tok == self.scfg.eos_id:
@@ -343,25 +358,30 @@ class Engine:
         """Dispatch one decode chunk without waiting.  ``tokens`` (slots,)
         int32 on the device (the speculative path passes the previous
         chunk's last tokens, still on the device)."""
-        lens0 = np.asarray(self.pt.lens, np.int32)
-        n = self._chunk_steps(active, lens0)
-        for s in active:
-            self.pt.extend(s, n)
-        table, _ = self.pt.device_tables(self.device)
-        temps = np.zeros((self.scfg.max_slots,), np.float32)
-        for s in active:
-            req = self.slots[s]
-            temps[s] = req.temperature if req.temperature is not None else self.scfg.temperature
-        greedy = all(temps[s] == 0 for s in active)
-        # every slot is computed, only active ones may write KV
-        live = np.zeros((self.scfg.max_slots,), np.int32)
-        live[active] = 1
-        with serving_mesh_scope(self.mesh), collective_phase("decode"):
+        with span("engine.schedule"):
+            lens0 = np.asarray(self.pt.lens, np.int32)
+            n = self._chunk_steps(active, lens0)
+            for s in active:
+                self.pt.extend(s, n)
+            table, _ = self.pt.device_tables(self.device)
+            temps = np.zeros((self.scfg.max_slots,), np.float32)
+            for s in active:
+                req = self.slots[s]
+                temps[s] = req.temperature if req.temperature is not None else self.scfg.temperature
+            greedy = all(temps[s] == 0 for s in active)
+            # every slot is computed, only active ones may write KV
+            live = np.zeros((self.scfg.max_slots,), np.int32)
+            live[active] = 1
+            pos, lens = self._dev(lens0 + 1), self._dev(lens0)
+            temps_d, live_d = self._dev(temps), self._dev(live)
+        with span("engine.decode_dispatch"), serving_mesh_scope(self.mesh), \
+                collective_phase("decode"):
             toks, self.cache = decode_steps(
-                self.params, self.cache, self.run_cfg, table, self._dev(lens0 + 1), tokens,
-                self._dev(lens0), self._dev(temps), self.gen, n, greedy_only=greedy,
-                live=self._dev(live), window=self.mesh is not None and self.mesh.model > 1)
+                self.params, self.cache, self.run_cfg, table, pos, tokens, lens, temps_d,
+                self.gen, n, greedy_only=greedy, live=live_d,
+                window=self.mesh is not None and self.mesh.model > 1)
         self.steps += n
+        self.chunks += 1
         return _Chunk(toks, [(s, self.slots[s]) for s in active], n)
 
     def _can_speculate(self, pending: _Chunk) -> bool:
@@ -383,24 +403,26 @@ class Engine:
         """Fetch a chunk's tokens and fold them into its requests; slots
         retired or replaced since dispatch drop theirs."""
         t0 = time.time()
-        toks = chunk.toks.cpu().numpy()  # (n, slots): waits for the chunk
+        with span("engine.fetch"):
+            toks = chunk.toks.cpu().numpy()  # (n, slots): waits for the chunk
         self.decode_wall_s += time.time() - t0
         finished = []
-        for s, req in chunk.group:
-            if self.slots[s] is not req:
-                continue
-            for i in range(chunk.n):
-                tok = int(toks[i, s])
-                req.output.append(tok)
-                self.tokens_emitted += 1
-                if self._finished(req, tok):
-                    self._retire(s)
-                    finished.append(req)
-                    break
-        # the fetch above waited for the chunk: its KV writes have landed
-        if chunk.deferred:
-            self.pt.release_pages(chunk.deferred)
-            chunk.deferred = []
+        with span("engine.fold"):
+            for s, req in chunk.group:
+                if self.slots[s] is not req:
+                    continue
+                for i in range(chunk.n):
+                    tok = int(toks[i, s])
+                    req.output.append(tok)
+                    self.tokens_emitted += 1
+                    if self._finished(req, tok):
+                        self._retire(s)
+                        finished.append(req)
+                        break
+            # the fetch above waited for the chunk: its KV writes have landed
+            if chunk.deferred:
+                self.pt.release_pages(chunk.deferred)
+                chunk.deferred = []
         return finished
 
     def _decode_tick(self) -> list[Request]:
@@ -425,6 +447,7 @@ class Engine:
             t0 = time.time()
             self._spec = self._dispatch(pending.toks[-1], [s for s, _ in pending.group])
             self.decode_wall_s += time.time() - t0
+            self.spec_chunks += 1
         out = self._collect(pending)
         self._pending, self._spec = self._spec, None
         return out

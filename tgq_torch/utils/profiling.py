@@ -1,4 +1,5 @@
-"""Phase timers and the device trace (mirrors ``tgq/utils/profiling.py``)."""
+"""Phase timers, the device trace (mirrors ``tgq/utils/profiling.py``) and
+the program's named spans in it."""
 from __future__ import annotations
 
 import contextlib
@@ -48,6 +49,20 @@ class PhaseTimers:
         for k, v in self.summary().items():
             logger.info("[timing] %-24s total %8.2fs  n=%4d  mean %7.3fs",
                         k, v["total_s"], v["count"], v["mean_s"])
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``tgq.<name>`` range in the trace of a recording ``torch.profiler``
+    (``device_trace``, or a profiler the caller opened), on the clock of the
+    trace's kernel events.  With no profiler recording it is one shared
+    null context: the check costs a fraction of a microsecond, where an
+    idle ``record_function`` costs about twenty times as much."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function("tgq." + name)
 
 
 TRACE_NAME = "trace.json"
