@@ -10,6 +10,7 @@
                                              # GPT-2 / OPT / svd under the mesh (10e)
     python3 chip_smoke.py --phases 0,11      # K6 (causal flash attention), the slice-9 CLIs
     python3 chip_smoke.py --phases 0,12      # K6-bwd, training through the flash attention
+    python3 chip_smoke.py --phases 0,13      # the decode chunk as CUDA graphs
 
 Phases:
   0. the card's name and power limit; build the CUDA kernels from
@@ -144,6 +145,16 @@ Phases:
      GPT-2 (12 layers, 8 x 1024): every parameter's gradient against
      "naive" within ``TRAIN_REL_FROB``, then 3 AdamW steps with the loss
      falling, K6-bwd launched once a layer a step, the seconds a step.
+ 13. The serving engine's decode chunks replayed from CUDA graphs
+     (``tgq_torch.serve.decode.DecodeGraphs``) against the same engine with
+     ``graphs = None`` (every chunk eager), at Qwen3-8B full width and
+     depth, W4 g128, budgets of 8-64 (slots retire mid-chunk; overlapped
+     dispatch): 8 slots and 16 seeded requests of 128 prompt tokens at bf16
+     KV with A16, int8 KV with W4A8 (K4), and int4 KV with W4A8 and an
+     8-bit packed head; 128 slots and 128 requests of 512 tokens at bf16
+     KV.  The tokens identical, the K3 / K4 / K5 launches counted alike,
+     every chunk replayed from a graph, four captures; the capture's
+     seconds and both runs' walls printed (one-shot).
 
 Every mismatch raises; the script exits 0 only if every phase passed.
 The second-to-last line is a JSON object with one entry per kernel, the
@@ -3452,9 +3463,118 @@ def phase12c_training(dev, counts: dict, runs=(("qwen3-8b", 2, 4, 2048),
         flash_training(dev, counts, preset, layers, batch, seq)
 
 
+# ------------------------------------- decode chunks as CUDA graphs (13)
+
+
+def graph_vs_eager(dev, preset: str = "qwen3-8b", layers=None, kv_bits: int = 16,
+                   a_bits: int = 16, lm_head_bits: int = 16, slots: int = 8,
+                   n_requests: int = 16, prompt_len: int = 128, max_new: int = 64,
+                   seed: int = 0, group_size: int = 128) -> dict:
+    """The same seeded requests through an engine whose greedy decode chunks
+    replay from CUDA graphs and through one with ``graphs = None``: per
+    mode the outputs, the engine's counters, the K3 / K4 / K5 launches the
+    run counted, the run's wall and (graphs) the seconds of the capture,
+    made before the first request."""
+    import numpy as np
+    import torch
+
+    from tgq_torch.core.quant import QuantSpec
+    from tgq_torch.kernels import dequant_matmul as KD
+    from tgq_torch.kernels import paged_attention as K5
+    from tgq_torch.models import PRESETS
+    from tgq_torch.models.hf_import import init_packed_params
+    from tgq_torch.serve import Engine, ServeConfig
+
+    cfg = PRESETS[preset]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = init_packed_params(cfg, QuantSpec(bits=4, group_size=group_size), seed=0,
+                                lm_head_bits=lm_head_bits, device=dev)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=prompt_len).tolist()
+               for _ in range(n_requests)]
+    budgets = [int(b) for b in rng.integers(8, max_new + 1, size=n_requests)]
+    page = 64
+    mpps = -(-(prompt_len + max_new + page) // page)
+    scfg = ServeConfig(max_slots=slots, page_size=page, num_pages=slots * mpps + 1,
+                       max_pages_per_slot=mpps, max_new_tokens=max_new, decode_chunk=8,
+                       kv_bits=kv_bits, a_bits=a_bits)
+    out = {}
+    for mode in ("eager", "graphs"):
+        eng = Engine(params, cfg, scfg, device=dev)
+        capture_s = None
+        if mode == "eager":
+            eng.graphs = None
+        elif dev.type == "cuda":
+            t0 = time.time()
+            eng.graphs.capture()
+            torch.cuda.synchronize()
+            capture_s = time.time() - t0
+        reqs = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+        KD.launches = KD.launches_a8 = K5.launches = 0
+        t0 = time.time()
+        eng.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[mode] = {"tokens": [r.output for r in reqs], "wall_s": time.time() - t0,
+                     "capture_s": capture_s, "a8": eng.a8_active, "steps": eng.steps,
+                     "chunks": eng.chunks, "spec_chunks": eng.spec_chunks,
+                     "graph_chunks": eng.graph_chunks, "graph_captures": eng.graph_captures,
+                     "launches": {"dequant_matmul": KD.launches, "a8_matmul": KD.launches_a8,
+                                  "paged_attention": K5.launches}}
+        del eng
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+# (kv_bits, a_bits, lm_head_bits, slots, requests, prompt length): the cell's
+# 128 slots at prompts of 512 (K5 splits each context in 3) besides 8 slots
+PHASE13_RUNS = ((16, 16, 16, 8, 16, 128), (8, 8, 16, 8, 16, 128), (4, 8, 8, 8, 16, 128),
+                (16, 16, 16, 128, 128, 512))
+
+
+def phase13_decode_graphs(dev, counts: dict, preset: str = "qwen3-8b", layers=None,
+                          runs=PHASE13_RUNS) -> list:
+    """``graph_vs_eager`` at bf16 KV with A16, int8 KV with W4A8, int4 KV
+    with W4A8 and an 8-bit packed head, each at 8 slots, and bf16 KV at
+    128 slots: the same tokens and the same launch counts in both modes."""
+    results = []
+    for kv_bits, a_bits, head_bits, slots, n_req, prompt_len in runs:
+        r = graph_vs_eager(dev, preset, layers, kv_bits=kv_bits, a_bits=a_bits,
+                           lm_head_bits=head_bits, slots=slots, n_requests=n_req,
+                           prompt_len=prompt_len)
+        e, g = r["eager"], r["graphs"]
+        n_tok = sum(len(t) for t in e["tokens"])
+        same = e["tokens"] == g["tokens"]
+        summary = {"kv_bits": kv_bits, "a_bits": a_bits, "lm_head_bits": head_bits,
+                   "slots": slots, "requests": n_req, "prompt_len": prompt_len,
+                   "tokens_identical": same, "tokens": n_tok, "capture_s": g["capture_s"],
+                   **{f"{m}_{k}": r[m][k] for m in ("eager", "graphs")
+                      for k in ("wall_s", "steps", "chunks", "spec_chunks", "graph_chunks",
+                                "graph_captures", "launches")}}
+        print(json.dumps({"decode_graphs": summary}), flush=True)
+        label = f"kv{kv_bits} a{a_bits} head{head_bits} {slots} slots"
+        log(f"[phase13] {label}: tokens identical {same} ({n_tok} tokens); graph chunks "
+            f"{g['graph_chunks']} of {g['chunks']} ({g['spec_chunks']} speculative), captures "
+            f"{g['graph_captures']} in {g['capture_s']} s; launches {g['launches']} with graphs, "
+            f"{e['launches']} eager; wall {g['wall_s']:.2f} s with graphs, {e['wall_s']:.2f} s "
+            f"eager (one-shot); {card_line()}")
+        for k, v in g["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        assert same, label
+        assert g["launches"] == e["launches"], (label, g["launches"], e["launches"])
+        assert e["graph_chunks"] == e["graph_captures"] == 0, e
+        assert g["graph_captures"] == 4 and g["graph_chunks"] == g["chunks"] == e["chunks"], g
+        assert g["a8"] == e["a8"] == (a_bits == 8), (g["a8"], e["a8"])
+        results.append(summary)
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (all by default)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -3541,6 +3661,10 @@ def main() -> int:
         phase12c_training(dev, counts)
         log(f"[phase12] K6-bwd and training through the flash attention: "
             f"{time.time() - t12:.1f} s")
+    if 13 in phases:
+        t13 = time.time()
+        phase13_decode_graphs(dev, counts)
+        log(f"[phase13] the decode chunk as CUDA graphs: {time.time() - t13:.1f} s")
     kernels = [k1, k2, k3, k4, k5, k6, kb]
     for k in kernels:
         k["launches"] = counts.get(k["name"], 0)

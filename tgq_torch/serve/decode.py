@@ -27,6 +27,14 @@ into a bf16 window (``kv_cache.window_init``), K5 covers the pools with
 ``w_live`` and returns flash partials, ``_window_partial`` attends the
 window with torch ops, ``_merge_partials`` joins the two, and one
 ``window_flush`` per chunk quantizes the rows into the pools.
+
+On one CUDA card a greedy chunk outside chunk-window mode is a fixed chain
+of launches that reads nothing on the host, so ``decode_steps`` can replay
+it from a CUDA graph (:class:`DecodeGraphs`, one graph per chunk length)
+in place of dispatching its few thousand launches one by one from Python.
+The graph holds the same kernels in the same order as the eager chunk, so
+its tokens are the eager chunk's.  The kernels' ``launches`` counters rise
+at each replay by what the chunk launches, as they would eagerly.
 """
 from __future__ import annotations
 
@@ -262,28 +270,145 @@ def _sample_tokens(logits, temps, gen: torch.Generator, greedy_only: bool = Fals
     return torch.where(temps > 0, sampled.to(torch.int32), greedy)
 
 
-@torch.no_grad()
-def decode_steps(params, cache: PagedKVCache, cfg: ModelConfig, table, lens, tokens, pos,
-                 temps, gen: torch.Generator, n_steps: int, greedy_only: bool = False,
-                 live=None, window: bool = False):
-    """``n_steps`` tokens for every slot, sampled on the device.  The page
-    table must already cover ``lens + n_steps - 1`` tokens per slot.
-    lens/pos follow ``decode_step`` at step 0 and advance by one each step.
-    ``window`` (tensor-parallel serving): a chunk of more than one step
-    runs in chunk-window mode (the module docstring).  Returns (tokens
-    (n_steps, slots) int32, cache)."""
-    win = window_init(cache, tokens.shape[0], n_steps) if window and n_steps > 1 else None
+def _decode_chunk(params, cache: PagedKVCache, cfg: ModelConfig, table, lens, tokens, pos,
+                  temps, gen, n_steps: int, greedy_only: bool, live, win):
+    """The chunk's steps, eagerly: (n_steps, slots) int32 tokens."""
     toks = []
-    tok, pos0 = tokens, pos
+    tok = tokens
     for i in range(n_steps):
         logits = _decode_core(params, cache, cfg, table, lens, tok, pos, live,
                               win=win, w_live=i)
         tok = _sample_tokens(logits, temps, gen, greedy_only)
         toks.append(tok)
         lens, pos = lens + 1, pos + 1
+    return torch.stack(toks)
+
+
+def graph_eligible(device, greedy_only: bool) -> bool:
+    """Whether a chunk handed a :class:`DecodeGraphs` replays from it: on a
+    CUDA device and greedy (temperature sampling draws from the host's
+    generator state).  The holder's owner decides the rest: the engine
+    builds one only on a CUDA card outside a mesh, where no chunk runs a
+    collective or chunk-window mode."""
+    return torch.device(device).type == "cuda" and greedy_only
+
+
+def _launch_counters():
+    """The launch counters of the kernels a decode chunk runs: K3 and K4
+    (``dequant_matmul``) and K5 (``paged_attention``), as (module, name)."""
+    from tgq_torch.kernels import dequant_matmul, paged_attention
+
+    return ((dequant_matmul, "launches"), (dequant_matmul, "launches_a8"),
+            (paged_attention, "launches"))
+
+
+class DecodeGraphs:
+    """CUDA graphs of one engine's greedy decode chunks, one per chunk
+    length: the powers of two up to ``max_chunk`` (the engine rounds every
+    chunk down to one).
+
+    The graphs read their inputs from static buffers — ``table`` (slots,
+    mpps), ``lens``, ``tokens``, ``pos`` and ``live`` (slots,), all int32 —
+    and write their tokens into a static (n, slots) block each.  They share
+    one memory pool: replays run one at a time on the current stream, and
+    :meth:`replay` copies each block out before the next replay can
+    overwrite it.  All graphs are captured at the first replay: each length
+    first runs once eagerly with no slot live (no KV write), so that every
+    lazy allocation and build happens outside the capture, on the capture
+    stream.  The kernels' launch counters leave out those warm-ups and
+    captures; each replay adds what its length's capture launched."""
+
+    def __init__(self, params, cache: PagedKVCache, cfg: ModelConfig, slots: int, mpps: int,
+                 max_chunk: int, device):
+        self.params, self.cache, self.cfg = params, cache, cfg
+        self.lengths = tuple(1 << i for i in range(max(1, max_chunk).bit_length()))
+        i32 = dict(dtype=torch.int32, device=device)
+        self.table = torch.zeros((slots, mpps), **i32)
+        self.lens, self.tokens, self.pos, self.live = (
+            torch.zeros((slots,), **i32) for _ in range(4))
+        self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.out: dict[int, torch.Tensor] = {}
+        self.launches: dict[int, list[int]] = {}  # per length: each counter's rise a replay
+        self.k5_counters = None  # K5's merge counters, which the graphs read by address
+        self.captures = 0        # graphs captured
+        self.replays = 0         # chunks replayed from a graph
+
+    def _chunk(self, n_steps: int) -> torch.Tensor:
+        return _decode_chunk(self.params, self.cache, self.cfg, self.table, self.lens,
+                             self.tokens, self.pos, None, None, n_steps, True, self.live, None)
+
+    @torch.no_grad()
+    def capture(self) -> None:
+        """Warm up and capture every length's graph (the class docstring)."""
+        from tgq_torch.kernels.paged_attention import _merge_counters
+
+        dev = self.table.device
+        counters = _launch_counters()
+        start = [getattr(m, k) for m, k in counters]
+        self.live.zero_()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.stream(side):
+            for n in self.lengths:
+                self._chunk(n)
+                before = [getattr(m, k) for m, k in counters]
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool, stream=side):
+                    self.out[n] = self._chunk(n)
+                self.launches[n] = [getattr(m, k) - b for (m, k), b in zip(counters, before)]
+                self.graphs[n] = graph
+                self.captures += 1
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for (m, k), v in zip(counters, start):
+            setattr(m, k, v)
+        self.k5_counters = _merge_counters(dev, 0)
+
+    def replay(self, table, lens, tokens, pos, live, n_steps: int) -> torch.Tensor:
+        """The chunk's (n_steps, slots) int32 tokens, in a fresh tensor."""
+        assert (n_steps in self.lengths and table.shape == self.table.shape
+                and tokens.shape == self.tokens.shape), (
+            "no graph of this chunk", n_steps, self.lengths, tuple(table.shape),
+            tuple(self.table.shape))
+        if not self.graphs:
+            self.capture()
+        for static, x in ((self.table, table), (self.lens, lens), (self.tokens, tokens),
+                          (self.pos, pos)):
+            static.copy_(x)
+        if live is None:
+            self.live.fill_(1)
+        else:
+            self.live.copy_(live)
+        self.graphs[n_steps].replay()
+        for (m, k), d in zip(_launch_counters(), self.launches[n_steps]):
+            setattr(m, k, getattr(m, k) + d)
+        self.replays += 1
+        return self.out[n_steps].clone()
+
+
+@torch.no_grad()
+def decode_steps(params, cache: PagedKVCache, cfg: ModelConfig, table, lens, tokens, pos,
+                 temps, gen: torch.Generator, n_steps: int, greedy_only: bool = False,
+                 live=None, window: bool = False, graphs: DecodeGraphs | None = None):
+    """``n_steps`` tokens for every slot, sampled on the device.  The page
+    table must already cover ``lens + n_steps - 1`` tokens per slot.
+    lens/pos follow ``decode_step`` at step 0 and advance by one each step.
+    ``window`` (tensor-parallel serving): a chunk of more than one step
+    runs in chunk-window mode (the module docstring).  ``graphs``: where
+    ``graph_eligible`` holds, the chunk is replayed from the holder's CUDA
+    graph of its length, which must be one of the holder's, as must the
+    weights, pools and shapes.  Returns (tokens (n_steps, slots) int32,
+    cache)."""
+    if graphs is not None and graph_eligible(tokens.device, greedy_only):
+        assert not window and params is graphs.params and cache is graphs.cache, (
+            "a DecodeGraphs replays only its own weights and pools, outside chunk-window mode")
+        return graphs.replay(table, lens, tokens, pos, live, n_steps), cache
+    win = window_init(cache, tokens.shape[0], n_steps) if window and n_steps > 1 else None
+    toks = _decode_chunk(params, cache, cfg, table, lens, tokens, pos, temps, gen, n_steps,
+                         greedy_only, live, win)
     if win is not None:
-        window_flush(cache, win, table, pos0, n_steps, live=live)
-    return torch.stack(toks), cache
+        window_flush(cache, win, table, pos, n_steps, live=live)
+    return toks, cache
 
 
 def _prefill_layer(lp, li: int, cfg: ModelConfig, x, cache: PagedKVCache, cos, sin,

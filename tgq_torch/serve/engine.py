@@ -18,6 +18,12 @@ generator seeded alike, so every rank holds the same tokens; a decode
 chunk of more than one step runs in chunk-window mode
 (``tgq_torch.serve.decode``).
 
+On a CUDA card without a mesh the engine owns a ``DecodeGraphs``
+(``Engine.graphs``) and hands it to every ``decode_steps`` call: each
+greedy chunk is replayed from a CUDA graph of its length, captured at the
+first decode chunk; temperature chunks stay eager, as does every chunk on
+the CPU or under a mesh.  ``Engine.graphs = None`` keeps every chunk eager.
+
 Under a recording ``torch.profiler`` each tick's host work is a
 ``tgq.engine.*`` span (``tgq_torch.utils.profiling.span``): ``step``
 around the tick; inside it ``admit``, ``prefill_dispatch``,
@@ -45,7 +51,12 @@ from tgq_torch.parallel.mesh import (
     serving_mesh_scope,
     shard_params,
 )
-from tgq_torch.serve.decode import decode_steps, fuse_packed_projections, prefill_batch
+from tgq_torch.serve.decode import (
+    DecodeGraphs,
+    decode_steps,
+    fuse_packed_projections,
+    prefill_batch,
+)
 from tgq_torch.serve.kv_cache import PagedKVCache, PageTable, host_to_device
 from tgq_torch.utils.precision import resolve_device
 from tgq_torch.utils.profiling import span
@@ -198,6 +209,20 @@ class Engine:
         self._spec: Optional[_Chunk] = None
         self._pf: deque[_PrefillChunk] = deque()
         self._staging: set = set()
+        self.graphs = None
+        if self.device.type == "cuda" and mesh is None:
+            self.graphs = DecodeGraphs(self.params, self.cache, self.run_cfg, scfg.max_slots,
+                                       scfg.max_pages_per_slot, scfg.decode_chunk, self.device)
+
+    @property
+    def graph_chunks(self) -> int:
+        """Decode chunks replayed from a CUDA graph."""
+        return self.graphs.replays if self.graphs is not None else 0
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured (one per chunk length, at the first chunk)."""
+        return self.graphs.captures if self.graphs is not None else 0
 
     def _dev(self, arr) -> torch.Tensor:
         return host_to_device(arr, self.device)
@@ -379,7 +404,7 @@ class Engine:
             toks, self.cache = decode_steps(
                 self.params, self.cache, self.run_cfg, table, pos, tokens, lens, temps_d,
                 self.gen, n, greedy_only=greedy, live=live_d,
-                window=self.mesh is not None and self.mesh.model > 1)
+                window=self.mesh is not None and self.mesh.model > 1, graphs=self.graphs)
         self.steps += n
         self.chunks += 1
         return _Chunk(toks, [(s, self.slots[s]) for s in active], n)
