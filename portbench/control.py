@@ -26,20 +26,21 @@ ROOT = Path(__file__).resolve().parent.parent
 def quantize_control(cell, seed: int, device) -> dict:
     import torch
 
-    from portbench.lib import bench, traffic, weights
+    from portbench.lib import bench, traffic
     from portbench.reference.check_quantize import check_sweep, control_captures
     drv = bench.driver(cell.mix["driver"])
     mix, conf = cell.mix, cell.config
-    d = weights.dims(conf)
+    fam = bench.family(conf["family"])
+    d = fam.dims(conf)
     n_layers = int(conf["layers_per_sweep"])
     sample, solver_layers = drv.check_plan(mix, seed, n_layers)
     ids = traffic.synthetic_calibration(d.vocab, mix["n_samples"], mix["seq_len"], seed,
                                         mix["phrases"], mix["phrase_len"])
 
     def make_layer(li):
-        return weights.make_layer(d, seed, li, torch.bfloat16, device)
+        return fam.make_layer(d, seed, li, torch.bfloat16, device)
 
-    outer = weights.make_outer(d, seed, torch.bfloat16, device)
+    outer = fam.make_outer(d, seed, torch.bfloat16, device)
     caps = control_captures(d, make_layer, outer, ids, drv.settings(mix), n_layers, sample,
                             device)
     nums = check_sweep(d, make_layer, outer, ids, drv.settings(mix), caps, solver_layers,

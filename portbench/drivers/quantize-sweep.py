@@ -10,11 +10,22 @@ calls' summed walls (each ending in a synchronize) over the layers they
 quantized.
 
 The first sweep of the window is captured for the check: the Hessian and
-factor of every group (``pipeline._factorize``), one calibration batch of
-every layer's output (``pipeline.quantize_layer``), and the codes and
-written-back weights.  Every later sweep's codes must be the first's bit
-for bit (``sweeps_differ``).  A traced run passes synchronizing phase
+factor of every group (``pipeline._factorize``), layer by layer
+(``pipeline.quantize_layer``), one calibration batch of every layer's
+output, and the codes and written-back weights.  The layers, their
+groups and modules are the family's plans (``families/<family>.py``);
+the check matches each layer's captures to its plan's groups and fails
+where their counts differ.  Every later sweep's codes must be the first's
+bit for bit (``sweeps_differ``).  A traced run passes synchronizing phase
 timers and traces the sweeps of its first ``trace_seconds``.
+
+``rec`` hands the readers the first sweep's whole log as
+``quantize_model`` returns it (``log``: ``layer_stats`` with every key
+the program writes, ``metrics``), each swept layer's group ranks and
+the rows that fed each group (``group_ranks``, ``group_rows``: every
+calibration token, or for a routed group the ``rows`` its first module's
+``layer_stats`` entry reports, None where it reports none), and the
+phase timers' totals (``phase_s``).
 """
 from __future__ import annotations
 
@@ -22,7 +33,7 @@ import time
 
 import torch
 
-from portbench.lib import stats, traffic, weights
+from portbench.lib import bench, stats, traffic, weights
 from portbench.lib.runctx import Outcome, free_device, memory_peak, model_config, sync
 from portbench.lib.trace import DeviceTrace
 
@@ -33,7 +44,7 @@ class _Capture:
     def __init__(self, pipeline, sample: int):
         self.on = False
         self.sample = sample
-        self.groups: list = []   # (h, FactorResult) in call order
+        self.groups: list = []   # each layer's [(h, FactorResult)] in call order
         self.outs: list = []     # one batch of each layer's outputs
         self._pipeline = pipeline
         self._orig = (pipeline._factorize, pipeline.quantize_layer)
@@ -42,10 +53,12 @@ class _Capture:
         def _factorize(h_or_y, qcfg, eps):
             res = factorize(h_or_y, qcfg, eps)
             if self.on:
-                self.groups.append((h_or_y, res))
+                self.groups[-1].append((h_or_y, res))
             return res
 
         def _quantize_layer(*args, **kwargs):
+            if self.on:
+                self.groups.append([])
             out = quantize_layer(*args, **kwargs)
             if self.on:
                 self.outs.append(out[1][self.sample])
@@ -76,7 +89,8 @@ def run(ctx) -> Outcome:
 
     cell, mix, dev = ctx.cell, ctx.cell.mix, ctx.device
     conf = cell.config
-    d = weights.dims(conf)
+    fam = bench.family(conf["family"])
+    d = fam.dims(conf)
     cfg = model_config(conf, cell.config_name)
     n_layers = int(conf["layers_per_sweep"])
     params = weights.make_params(d, ctx.seed, torch.bfloat16, dev)
@@ -130,29 +144,37 @@ def run(ctx) -> Outcome:
         cap.close()
 
     modules = [m for log in logs for m in log["layer_stats"]]
-    failed = sum(1 for m in modules if not (m["rel_error"] == m["rel_error"]) or m["rank"] < 1)
-    ranks = [m["rank"] for m in logs[0]["layer_stats"]]
+    # a module fed by no row (a routed group the log says had none) keeps no rank
+    failed = sum(1 for m in modules if m.get("rows", 1)
+                 and (not (m["rel_error"] == m["rel_error"]) or m["rank"] < 1))
     sweeps_differ = sum(1 for s in sums if not torch.equal(s, sums[0]))
+    tokens = mix["n_samples"] * mix["seq_len"]
+    stat = {m["name"]: m for m in logs[0]["layer_stats"]}
+    group_ranks, group_rows = [], []
+    for li in range(n_layers):
+        groups = fam.layer_plan(d, li).groups
+        firsts = [stat[f"layer_{li}.{g.paths[0]}"] for g in groups]
+        group_ranks.append([m["rank"] for m in firsts])
+        group_rows.append([_rows(g, m, tokens) for g, m in zip(groups, firsts)])
     rec = {"dims": d, "layers_per_sweep": n_layers, "sweeps": len(walls),
-           "wall_s": sum(walls), "window_s": window_s,
-           "tokens": mix["n_samples"] * mix["seq_len"], "seq": mix["seq_len"],
-           "group_ranks": _group_ranks(d, logs[0]["layer_stats"]),
+           "wall_s": sum(walls), "window_s": window_s, "tokens": tokens, "seq": mix["seq_len"],
+           "group_ranks": group_ranks, "group_rows": group_rows,
            "block": mix["block_size"], "group": mix["group_size"],
            "phase_s": dict(timers.totals) if timers else None, "traced_sweeps": traced,
-           "first_ranks": ranks}
+           "log": logs[0]}
     e2e = {"setup_s": setup_s,
            "quantize_s_per_layer": stats.s_per_layer(walls, n_layers)}
     checks = {"sweeps_differ": float(sweeps_differ)}
     del params, pristine, layers, sums
     if ctx.check:
-        caps = _plain_captures(d, cap, first, n_layers)
+        caps = _plain_captures(fam, d, cap, first, n_layers)
         del first, cap
         free_device(dev)
         from portbench.reference.check_quantize import check_sweep
         t_check = time.time()
         checks.update(check_sweep(
-            d, lambda li: weights.make_layer(d, ctx.seed, li, torch.bfloat16, dev),
-            weights.make_outer(d, ctx.seed, torch.bfloat16, dev), ids, settings(mix), caps,
+            d, lambda li: fam.make_layer(d, ctx.seed, li, torch.bfloat16, dev),
+            fam.make_outer(d, ctx.seed, torch.bfloat16, dev), ids, settings(mix), caps,
             solver_layers, sample, dev))
         rec["check_s"] = time.time() - t_check
     return Outcome(e2e=e2e, rec=rec, attempted=len(modules), failed=failed, checks=checks,
@@ -176,31 +198,27 @@ def settings(mix: dict) -> dict:
             "batch": mix["batch_size"]}
 
 
-def _group_ranks(d, layer_stats) -> list[list[int]]:
-    """Each swept layer's four group ranks, from the sweep's log."""
-    g = weights.groups(d)
-    per_layer = len([p for grp in g for p in grp])
-    out = []
-    for i in range(0, len(layer_stats), per_layer):
-        names = [m["name"].split(".", 1)[1] for m in layer_stats[i:i + per_layer]]
-        ranks = {n: m["rank"] for n, m in zip(names, layer_stats[i:i + per_layer])}
-        out.append([ranks[grp[0]] for grp in g])
-    return out
+def _rows(g, first_stat: dict, tokens: int):
+    """The rows that fed group ``g``: what the program's log reports for its
+    first module, else every calibration token, or None for a routed group."""
+    if "rows" in first_stat:
+        return int(first_stat["rows"])
+    return None if g.routed else tokens
 
 
-def _plain_captures(d, cap, first, n_layers) -> list:
-    """The first sweep's captures as plain tensors for the reference."""
+def _plain_captures(fam, d, cap, first, n_layers) -> list:
+    """The first sweep's captures as plain tensors for the reference, each
+    layer's factorizations in the order the program made them."""
     from portbench.reference.check_quantize import GroupCapture, LayerCapture, ModuleCapture
     from portbench.reference.truncgptq import unpack_int4
     packed, written = first
-    g = weights.groups(d)
     out = []
     for li in range(n_layers):
         gcs = [GroupCapture(h=h, perm=torch.as_tensor(res.perm).long(), rank=int(res.rank),
                             r=torch.as_tensor(res.r_full))
-               for h, res in cap.groups[4 * li:4 * li + 4]]
+               for h, res in cap.groups[li]]
         mods = {}
-        for path in (p for grp in g for p in grp):
+        for path in (p for g in fam.layer_plan(d, li).groups for p in g.paths):
             pl = packed[f"layers.{li}.{path}"]
             mods[path] = ModuleCapture(
                 codes=unpack_int4(pl.codes, pl.out_features, pl.in_features, pl.group_size),

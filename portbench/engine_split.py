@@ -4,13 +4,13 @@
 
 Runs the cell once as ``run.py --trace 1`` does and prints its result line,
 then one JSON line: the window's ``program`` and ``idle_by_program``
-(``lib/program.py``), the engine's ``chunks`` and ``spec_chunks`` counters'
-rise over the traced window, the engine metrics read from them
-(``program.engine_metrics``), the run's end-to-end metrics, and
-``split_gap``: how far the idle parts' sum lies from ``window_s - busy_s``,
-as a share of it.  The benchmark's runs never run it: its reduction and
-counters reach the benchmark's result line only once ``lib/trace.py`` and
-``drivers/serve-closed.py`` take them.
+(``lib/program.py``, in every traced summary), the engine's ``chunks`` and
+``spec_chunks`` counters' rise over the traced window, the engine metrics
+read from them (``program.engine_metrics``), the run's end-to-end metrics,
+and ``split_gap``: how far the idle parts' sum lies from ``window_s -
+busy_s``, as a share of it.  The benchmark's runs never run it: the
+counters reach the benchmark's result line only once
+``drivers/serve-closed.py`` takes them.
 """
 from __future__ import annotations
 
@@ -29,21 +29,18 @@ COUNTERS = ("chunks", "spec_chunks")
 @contextlib.contextmanager
 def patched(seen: dict):
     """While open, a cell's run (``run.main``, or ``run`` of a ``drivers/`` module) leaves
-    in ``seen`` its ``Outcome`` (``"out"``), its trace summary with
-    ``reduce_program``'s keys, and the engine's counters where the trace
-    started and stopped (``"c0"``, ``"c1"``; None where the engine has none)."""
-    from portbench.lib import bench, program, serving, trace
+    in ``seen`` its ``Outcome`` (``"out"``) and the engine's counters where
+    the trace started and stopped (``"c0"``, ``"c1"``; None where the engine
+    has none)."""
+    from portbench.lib import bench, serving, trace
 
-    real_reduce, real_build = trace.reduce_events, serving.build_engine
+    real_build = serving.build_engine
     real_start, real_stop = trace.DeviceTrace.start, trace.DeviceTrace.stop
     real_driver = bench.driver
 
     def counters():
         eng = seen["engine"]()
         return {k: getattr(eng, k, None) for k in COUNTERS} if eng is not None else {}
-
-    def reduce_events(events, wall_s):
-        return {**real_reduce(events, wall_s), **program.reduce_program(events)}
 
     def build_engine(ctx, slots):
         eng, d = real_build(ctx, slots)
@@ -68,12 +65,12 @@ def patched(seen: dict):
             return seen["out"]
         return types.SimpleNamespace(run=run)
 
-    trace.reduce_events, serving.build_engine, bench.driver = reduce_events, build_engine, driver
+    serving.build_engine, bench.driver = build_engine, driver
     trace.DeviceTrace.start, trace.DeviceTrace.stop = start, stop
     try:
         yield seen
     finally:
-        trace.reduce_events, serving.build_engine = real_reduce, real_build
+        serving.build_engine = real_build
         bench.driver = real_driver
         trace.DeviceTrace.start, trace.DeviceTrace.stop = real_start, real_stop
 

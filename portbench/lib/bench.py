@@ -6,10 +6,12 @@
   code is ``drivers/<kind>.py``;
 - a per-layer metric's reader is ``metrics/<name>.py``, or that of the
   name cut at its last ``.`` or ``-`` (one reader serves a split name);
-- the limits of a cell's correctness check are ``limits/<cell>.json``.
+- the limits of a cell's correctness check are ``limits/<cell>.json``;
+- a configuration's ``family`` key names the code of its model family,
+  ``families/<family>.py`` (``family``).
 
-Nothing here branches on a name: a cell, configuration, mix or metric is
-added by adding its files and its entry.
+Nothing here branches on a name: a cell, configuration, family, mix or
+metric is added by adding its files and its entry.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import dataclasses
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 from types import ModuleType
 
@@ -31,13 +34,21 @@ def load_json(path: Path) -> dict:
 
 def load_module(path: Path) -> ModuleType:
     """Import a file of the harness by its path (its name may hold dots or
-    dashes, which ``import`` does not take)."""
+    dashes, which ``import`` does not take), once a process a file."""
     if not path.exists():
         raise FileNotFoundError(f"portbench: no file {path}")
     name = "portbench_" + re.sub(r"[^0-9A-Za-z_]", "_", f"{path.parent.name}_{path.stem}")
+    mod = sys.modules.get(name)
+    if mod is not None and mod.__file__ == str(path):
+        return mod
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    sys.modules[name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[name]
+        raise
     return mod
 
 
@@ -84,6 +95,13 @@ def driver(kind: str) -> ModuleType:
     return load_module(PKG / "drivers" / f"{kind}.py")
 
 
+def family(name: str) -> ModuleType:
+    """``families/<name>.py``: a model family's sizes, layer plans (which
+    the driver, the check and the work counts read), seeded weights, port
+    configuration and plain reference."""
+    return load_module(PKG / "families" / f"{name}.py")
+
+
 def reader(metric: str) -> ModuleType:
     """``metrics/<metric>.py``; for a name split by kind of cell (such as
     ``device.idle_share.serve-decode``) without a file of its own, the
@@ -95,3 +113,16 @@ def reader(metric: str) -> ModuleType:
             raise FileNotFoundError(f"portbench: no reader for {metric!r} in {PKG / 'metrics'}")
         name = name[:cut]
     return load_module(PKG / "metrics" / f"{name}.py")
+
+
+def per_layer_values(cell: Cell, rec: dict, trace) -> dict:
+    """The cell's per-layer metrics of a traced run: each reader is handed
+    the driver's ``rec`` with the trace's summary under ``trace``; one that
+    finds nothing to read leaves its metric out."""
+    rec = dict(rec, trace=trace)
+    out = {}
+    for m in cell.per_layer:
+        v = reader(m["name"]).read(rec)
+        if v is not None:
+            out[m["name"]] = {"value": float(v), "unit": m["unit"]}
+    return out

@@ -14,8 +14,9 @@ same ``torch.profiler`` trace as the device's kernels, on the same clock.
   span open is ``"outside"``.  The parts sum to ``window_s - busy_s`` of
   ``trace.reduce_events`` on the same events.
 
-The window, the device's busy intervals and the harness's spans are
-``trace.reduce_events``'s; nothing here changes what it returns.
+The window and the device's busy intervals are taken as
+``trace.reduce_events`` takes them; it returns both keys beside its own,
+so a reader finds them under ``rec["trace"]``.
 """
 from __future__ import annotations
 

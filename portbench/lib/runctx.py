@@ -37,17 +37,12 @@ def forbidden_modules() -> list[str]:
 
 
 def model_config(conf: dict, name: str):
-    """The port's ModelConfig for a configuration file."""
+    """The port's ModelConfig for a configuration file, of the fields its
+    family gives (``families/<family>.py::port_config``)."""
     from tgq_torch.models.config import ModelConfig
 
-    from portbench.lib.weights import dims
-    d = dims(conf)
-    return ModelConfig(
-        name=name, vocab_size=d.vocab, hidden_size=d.hidden, intermediate_size=d.ff,
-        num_layers=d.layers, num_heads=d.heads, num_kv_heads=d.kv_heads,
-        head_dim=d.head_dim, rope_theta=d.rope_theta or 1e6, rms_norm_eps=d.eps,
-        qk_norm=d.qk_norm, attention_bias=d.bias, tie_word_embeddings=d.tie,
-        max_position_embeddings=d.max_pos, family=d.family)
+    from portbench.lib import bench
+    return ModelConfig(**bench.family(conf["family"]).port_config(conf, name))
 
 
 def sync(device) -> None:

@@ -6,7 +6,8 @@ The model follows ``tgq_torch.cli.serve``'s path without a checkpoint:
 every decoder linear drawn in f32 from the seed and RTN-packed by the
 port's ``rtn_pack`` (W4, group 128, asymmetric), bf16 embeddings, norms
 and dense head, served greedily by ``tgq_torch.serve.Engine`` with bf16 KV
-pages.
+pages.  The layers are the family's (``families/<family>.py``); a family
+whose ``SERVES`` is false is one the port's engine does not run.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import time
 
 import torch
 
-from portbench.lib import traffic, weights
+from portbench.lib import bench, traffic, weights
 from portbench.lib.runctx import free_device, model_config, sync
 from portbench.lib.trace import span
 
@@ -33,20 +34,24 @@ def build_engine(ctx, slots: int):
     from tgq_torch.serve import Engine, ServeConfig
 
     cell, mix, dev = ctx.cell, ctx.cell.mix, ctx.device
-    d = weights.dims(cell.config)
+    fam = bench.family(cell.config["family"])
+    if not fam.SERVES:
+        raise ValueError(f"portbench: the port's engine does not serve family "
+                         f"{cell.config['family']!r} (its families file says SERVES = False)")
+    d = fam.dims(cell.config)
     cfg = model_config(cell.config, cell.config_name)
     spec = QuantSpec(bits=mix["w_bits"], group_size=mix["group_size"], sym=False)
 
-    def pack(lp):
-        for path, *_ in weights.linears(d):
+    def pack(lp, li):
+        for path, *_ in fam.layer_plan(d, li).linears:
             parent, leaf = path.rsplit(".", 1) if "." in path else ("", path)
             node = weights.get(lp, path)
             packed = rtn_pack(node["w"], spec, bias=node["b"].float() if "b" in node else None)
             (weights.get(lp, parent) if parent else lp)[leaf] = packed
         return _to_bf16(lp)
 
-    params = weights.make_outer(d, ctx.seed, torch.bfloat16, dev)
-    params["model"]["layers"] = [pack(weights.make_layer(d, ctx.seed, li, torch.float32, dev))
+    params = fam.make_outer(d, ctx.seed, torch.bfloat16, dev)
+    params["model"]["layers"] = [pack(fam.make_layer(d, ctx.seed, li, torch.float32, dev), li)
                                  for li in range(d.layers)]
     mpps = pages_per_slot(mix)
     a_bits = (ctx.control or {}).get("a_bits", mix["a_bits"])
@@ -164,8 +169,9 @@ def check_served(ctx, d, sample: list) -> dict:
         return {"served_gap": math.inf, "served_gap_mean": math.inf}
     free_device(ctx.device)
     mix, dev = ctx.cell.mix, ctx.device
+    fam = bench.family(d.family)
     gaps = served_gaps(
-        d, lambda li: weights.make_layer(d, ctx.seed, li, torch.float32, dev),
-        weights.make_outer(d, ctx.seed, torch.bfloat16, dev),
+        d, lambda li: fam.make_layer(d, ctx.seed, li, torch.float32, dev),
+        fam.make_outer(d, ctx.seed, torch.bfloat16, dev),
         [(r.prompt, r.output) for r in sample], mix["w_bits"], mix["group_size"], dev)
     return {"served_gap": max(gaps), "served_gap_mean": sum(gaps) / len(gaps)}

@@ -18,7 +18,10 @@ reduced by ``finish`` once the measured window has closed.
   counted from the kernel event (``launch_source`` says which);
 - ``device_ops`` and ``idle_gaps``: the ten device operations that took
   most time, and the idle time grouped by the host operation running in
-  the middle of each gap.
+  the middle of each gap;
+- ``program`` and ``idle_by_program``: the program's own ``tgq.*`` spans
+  (``lib/program.py``), so that a reader of a new span needs no other
+  file.
 """
 from __future__ import annotations
 
@@ -122,6 +125,7 @@ def _host_op_at(t: float, starts: list[float], ops: list[dict]) -> str:
 
 
 def reduce_events(events: list[dict], wall_s: float) -> dict:
+    from portbench.lib.program import reduce_program   # it reads this module's names
     xs = [e for e in events if e.get("ph") == "X"]
     win = [e for e in xs if e.get("name") == WINDOW and e.get("cat") == "user_annotation"]
     if win:
@@ -209,7 +213,7 @@ def reduce_events(events: list[dict], wall_s: float) -> dict:
             "kernels": kernels, "spans": out_spans, "n_kernels": n_kernels,
             "launch_source": "api" if unmatched == 0 else
             f"kernel events for {unmatched} of {n_kernels} kernels",
-            "device_ops": top(kernels), "idle_gaps": top(gaps)}
+            "device_ops": top(kernels), "idle_gaps": top(gaps), **reduce_program(events)}
 
 
 def kernel_seconds(summary: dict, *words: str, exclude: tuple = ()) -> float:

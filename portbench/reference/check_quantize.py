@@ -4,10 +4,18 @@ The program's sweep is followed layer by layer from its own state: the
 reference recomputes every group's input in f32 through the program's
 quantized weights of the earlier groups (its codes, scales and zeros,
 rounded to bf16 as the program hands the model on), and each solver
-stage from the program's own input to that stage:
+stage from the program's own input to that stage.  The layers are the
+family's (``families/<family>.py``): its plan names each layer's groups
+in sweep order, and its ``ref_layer`` yields each group's input rows
+(for a routed group, only the rows routed to it, at times none), then
+the layer's output.  Each layer's captured factorizations are matched to
+its plan's groups; where their counts or widths differ the check raises
+``CaptureMismatch`` and reads nothing.  A group fed by no row has a zero
+Hessian: it keeps no pivot, and its modules round to nearest.
 
 - ``gram_rel``: every group's Hessian against the f64 Gram of the
-  reference's f32 activations (calibration forwards, K6, the Grams);
+  reference's f32 activations (calibration forwards, K6, the Grams; 0
+  where both are zero);
 - ``act_rel``: one calibration batch of each layer's output, the input
   the program hands the next layer, against the reference's f32 forward;
 - ``pivot_regret``: along the program's pivot order, the largest
@@ -36,7 +44,7 @@ import dataclasses
 
 import torch
 
-from portbench.reference.layers import Family, linear, norm_tensors, outer_tensors
+from portbench.lib import bench
 from portbench.reference.truncgptq import (
     Gram,
     dequantize,
@@ -66,7 +74,7 @@ class ModuleCapture:
 
 @dataclasses.dataclass
 class LayerCapture:
-    groups: list           # four GroupCapture
+    groups: list           # a GroupCapture for each of the plan's groups, in sweep order
     modules: dict          # path -> ModuleCapture
     out_sample: torch.Tensor  # the layer's output for calibration batch ``sample``
 
@@ -82,8 +90,15 @@ def _worst(a: float, b: float) -> float:
     return max(a, b)
 
 
+class CaptureMismatch(ValueError):
+    """The program's captures do not line up with the family's plan."""
+
+
 def _rel(a, b) -> float:
-    return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
+    nb = torch.linalg.norm(b.double())
+    if nb == 0:
+        return 0.0 if bool((a == b).all()) else float("inf")
+    return float(torch.linalg.norm((a - b).double()) / nb)
 
 
 def _get(tree, dotted):
@@ -97,6 +112,16 @@ def _bias(lp, path, dtype):
     return node["b"].to(dtype) if "b" in node else None
 
 
+def _regret(regret, piv, rank: int) -> float:
+    """The kept pivots' largest regret over the first pivot; 0 where no
+    pivot was kept or the Hessian is zero."""
+    worst = float(regret[:rank].max()) if rank else 0.0
+    first = float(piv[0])
+    if first > 0:
+        return worst / first
+    return 0.0 if worst == 0 else float("inf")
+
+
 def check_group(gc: GroupCapture, weights: list, params: list, s: dict) -> dict:
     """The solver numbers of one group: ``weights`` the group's original
     weights (m_i, n), ``params`` the program's (codes, scale, zero) of each."""
@@ -105,8 +130,7 @@ def check_group(gc: GroupCapture, weights: list, params: list, s: dict) -> dict:
     perm = gc.perm.to(h.device).long()
     L, _, piv, regret = pivoted_cholesky(h, order=perm)
     r_ref = energy_rank(L, piv, float(torch.diagonal(h).sum()), s["eps"], s["pivot_rtol"])
-    out = {"rank_gap": abs(r_ref - gc.rank) / n,
-           "pivot_regret": float(regret[:gc.rank].max()) / float(piv[0])}
+    out = {"rank_gap": abs(r_ref - gc.rank) / n, "pivot_regret": _regret(regret, piv, gc.rank)}
     rf = truncated_factor(L, perm, gc.rank)
     out["factor_rel"] = _rel(gc.r.double(), rf)
     del L, rf
@@ -136,6 +160,29 @@ def _row_loss(w, wq, h):
     return ((e @ h) * e).sum(1)
 
 
+def _aligned(fam, d, captures: list) -> None:
+    for li, cap in enumerate(captures):
+        groups = fam.layer_plan(d, li).groups
+        if len(cap.groups) != len(groups):
+            raise CaptureMismatch(
+                f"layer {li}: the program factorized {len(cap.groups)} groups, the plan of "
+                f"family {d.family!r} holds {len(groups)}")
+        for gi, (g, gc) in enumerate(zip(groups, cap.groups)):
+            if tuple(gc.h.shape) != (g.n, g.n):
+                raise CaptureMismatch(f"layer {li} group {gi} ({g.paths[0]}): a Hessian of "
+                                      f"{tuple(gc.h.shape)}, the plan's input is {g.n} wide")
+
+
+def _weights(lp: dict, plan, dtype, quantized: dict) -> dict:
+    """Path -> (weight, bias or None) of every linear of the layer: the
+    ``quantized`` weight where given, the original elsewhere."""
+    out = {}
+    for x in plan.linears:
+        w = quantized[x.path] if x.path in quantized else _get(lp, x.path)["w"].to(dtype)
+        out[x.path] = (w, _bias(lp, x.path, dtype))
+    return out
+
+
 @torch.no_grad()
 def check_sweep(d, make_layer, outer, ids, s: dict, captures: list, solver_layers,
                 sample: int, device) -> dict:
@@ -146,52 +193,45 @@ def check_sweep(d, make_layer, outer, ids, s: dict, captures: list, solver_layer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     f32, f64 = torch.float32, torch.float64
-    fam = Family(d)
-    from portbench.lib.weights import groups
-    grp = groups(d)
-    o = outer_tensors(outer, d, f32)
+    fam = bench.family(d.family)
+    _aligned(fam, d, captures)
+    o = fam.ref_outer(d, outer, f32)
     ids = torch.as_tensor(ids, device=device).long()
     n_seq, seq = ids.shape
     bs = s["batch"]
     x_all = torch.empty((n_seq, seq, d.hidden), dtype=f32, device=device)
     for b0 in range(0, n_seq, bs):
-        x_all[b0:b0 + bs] = fam.embed(o, ids[b0:b0 + bs], f32)
+        x_all[b0:b0 + bs] = fam.ref_embed(d, o, ids[b0:b0 + bs], f32)
     nums = {k: 0.0 for k in NUMBERS}
     for li, cap in enumerate(captures):
+        plan = fam.layer_plan(d, li)
         lp = make_layer(li)
-        norms = norm_tensors(lp, d, f32)
-        wq = {}
+        t = fam.ref_tensors(d, lp, f32)
+        deqs = {}
         for path, mc in cap.modules.items():
             orig = _get(lp, path)["w"].float()
             sc, ze = find_params(orig, s["bits"], s["group"])
             nums["grid_miss"] += float((sc != mc.scale).sum() + (ze != mc.zero).sum())
             deq = dequantize(mc.codes, mc.scale, mc.zero, s["group"]).to(torch.bfloat16)
             nums["grid_miss"] += float((deq != mc.w.to(torch.bfloat16)).sum())
-            wq[path] = (deq.float(), _bias(lp, path, f32))
-        widths = [_get(lp, g[0])["w"].shape[1] for g in grp]
-        grams = [Gram(n, f64, device) for n in widths]
+            deqs[path] = deq.float()
+        wq = _weights(lp, plan, f32, deqs)
+        grams = [Gram(g.n, f64, device) for g in plan.groups]
         for b0 in range(0, n_seq, bs):
-            x = x_all[b0:b0 + bs]
-            h = fam.input0(norms, x)
-            grams[0].update(h)
-            a = fam.attention(wq, norms, h)
-            grams[1].update(a)
-            x2 = x + linear(a, wq[fam.out_proj_name()])
-            h2 = fam.input2(norms, x2)
-            grams[2].update(h2)
-            act = fam.act(wq, h2)
-            grams[3].update(act)
-            x_all[b0:b0 + bs] = x2 + linear(act, wq[fam.down_name()])
-            del h, a, x2, h2, act
+            rows = fam.ref_layer(d, li, wq, t, x_all[b0:b0 + bs])
+            for gram, x in zip(grams, rows):
+                gram.update(x)
+            x_all[b0:b0 + bs] = next(rows)
+            del rows
         ref_out = x_all[sample * bs:(sample + 1) * bs]
         nums["act_rel"] = _worst(nums["act_rel"], _rel(cap.out_sample.float(), ref_out))
-        for gi, (g, gc) in enumerate(zip(grp, cap.groups)):
+        for gi, (g, gc) in enumerate(zip(plan.groups, cap.groups)):
             nums["gram_rel"] = _worst(nums["gram_rel"], _rel(gc.h, grams[gi].value()))
             grams[gi] = None
             if li in solver_layers:
-                got = check_group(gc, [_get(lp, p)["w"] for p in g],
+                got = check_group(gc, [_get(lp, p)["w"] for p in g.paths],
                                   [(cap.modules[p].codes, cap.modules[p].scale,
-                                    cap.modules[p].zero) for p in g], s)
+                                    cap.modules[p].zero) for p in g.paths], s)
                 for k, v in got.items():
                     nums[k] = _worst(nums[k], v)
         del lp, wq, grams
@@ -226,51 +266,44 @@ def _solve_group(h, weights, s):
     return GroupCapture(h=h.float(), perm=perm, rank=rank, r=r.float()), out
 
 
+def _nth(gen, k: int):
+    """The ``k``-th value a generator yields (it is left unfinished)."""
+    for i, v in enumerate(gen):
+        if i == k:
+            return v
+    raise IndexError(k)
+
+
 def _sweep(d, make_layer, outer, ids, s, n_layers, sample, device, dt):
-    fam = Family(d)
-    from portbench.lib.weights import groups
-    grp = groups(d)
-    o = outer_tensors(outer, d, dt)
+    """Each group's input is the layer run up to it, through the groups
+    already quantized (the layer is run anew for each group)."""
+    fam = bench.family(d.family)
+    o = fam.ref_outer(d, outer, dt)
     ids = torch.as_tensor(ids, device=device).long()
     n_seq, seq = ids.shape
     bs = s["batch"]
     x_all = torch.empty((n_seq, seq, d.hidden), dtype=dt, device=device)
     for b0 in range(0, n_seq, bs):
-        x_all[b0:b0 + bs] = fam.embed(o, ids[b0:b0 + bs], dt).to(torch.bfloat16).to(dt)
+        x_all[b0:b0 + bs] = fam.ref_embed(d, o, ids[b0:b0 + bs], dt).to(torch.bfloat16).to(dt)
     caps = []
     for li in range(n_layers):
+        plan = fam.layer_plan(d, li)
         lp = make_layer(li)
-        norms = norm_tensors(lp, d, dt)
-        wq = {p: (_get(lp, p)["w"].to(dt), _bias(lp, p, dt)) for g in grp for p in g}
+        t = fam.ref_tensors(d, lp, dt)
+        wq = _weights(lp, plan, dt, {})
         gcs, mods = [], {}
-
-        def stage(gi, x):
-            h = fam.input0(norms, x)
-            if gi == 0:
-                return h
-            a = fam.attention(wq, norms, h)
-            if gi == 1:
-                return a
-            x2 = x + linear(a, wq[fam.out_proj_name()])
-            h2 = fam.input2(norms, x2)
-            return h2 if gi == 2 else fam.act(wq, h2)
-
-        for gi, g in enumerate(grp):
-            n = _get(lp, g[0])["w"].shape[1]
-            gram = Gram(n, dt, device)
+        for gi, g in enumerate(plan.groups):
+            gram = Gram(g.n, dt, device)
             for b0 in range(0, n_seq, bs):
-                gram.update(stage(gi, x_all[b0:b0 + bs]))
-            gc, mcs = _solve_group(gram.value(), [_get(lp, p)["w"] for p in g], s)
+                gram.update(_nth(fam.ref_layer(d, li, wq, t, x_all[b0:b0 + bs]), gi))
+            gc, mcs = _solve_group(gram.value(), [_get(lp, p)["w"] for p in g.paths], s)
             gcs.append(gc)
-            for p, mc in zip(g, mcs):
+            for p, mc in zip(g.paths, mcs):
                 mods[p] = mc
                 wq[p] = (mc.w.to(dt), wq[p][1])
         out_sample = None
         for b0 in range(0, n_seq, bs):
-            x = x_all[b0:b0 + bs]
-            h = fam.input0(norms, x)
-            x2 = x + linear(fam.attention(wq, norms, h), wq[fam.out_proj_name()])
-            y = x2 + linear(fam.act(wq, fam.input2(norms, x2)), wq[fam.down_name()])
+            y = _nth(fam.ref_layer(d, li, wq, t, x_all[b0:b0 + bs]), len(plan.groups))
             x_all[b0:b0 + bs] = y.to(torch.bfloat16).to(dt)
             if b0 == sample * bs:
                 out_sample = y.to(torch.bfloat16)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from portbench.reference.layers import Family, linear, norm_tensors, outer_tensors
+from portbench.lib import bench
 from portbench.reference.truncgptq import rtn
 
 
@@ -34,40 +34,38 @@ def _get(tree, dotted):
 def served_gaps(d, make_layer, outer, requests, bits: int, group: int, device,
                 seqs_at_once: int = 2) -> list[float]:
     """Gap of every served token of ``requests`` ([(prompt, output)]),
-    request by request in order.  ``make_layer(li)`` the dense layer tree."""
+    request by request in order.  ``make_layer(li)`` the dense layer tree;
+    the layers are the family's (``families/<family>.py::ref_layer``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from portbench.lib.weights import linears
     f32 = torch.float32
-    fam = Family(d)
-    o = outer_tensors(outer, d, f32)
+    fam = bench.family(d.family)
+    o = fam.ref_outer(d, outer, f32)
     seqs = [list(p) + list(out[:-1]) for p, out in requests]
     t_max = max(len(s) for s in seqs)
     ids = torch.zeros((len(seqs), t_max), dtype=torch.long, device=device)
     for i, s in enumerate(seqs):
         ids[i, :len(s)] = torch.tensor(s, dtype=torch.long)
-    x_all = torch.cat([fam.embed(o, ids[i:i + 1], f32) for i in range(len(seqs))])
+    x_all = torch.cat([fam.ref_embed(d, o, ids[i:i + 1], f32) for i in range(len(seqs))])
     for li in range(d.layers):
+        plan = fam.layer_plan(d, li)
         lp = make_layer(li)
-        norms = norm_tensors(lp, d, f32)
+        t = fam.ref_tensors(d, lp, f32)
         w = {}
-        for path, *_ in linears(d):
-            node = _get(lp, path)
-            w[path] = (rtn(node["w"].float(), bits, group)[0],
-                       node["b"].float() if "b" in node else None)
+        for x in plan.linears:
+            node = _get(lp, x.path)
+            w[x.path] = (rtn(node["w"].float(), bits, group)[0],
+                         node["b"].float() if "b" in node else None)
         del lp
         for b0 in range(0, len(seqs), seqs_at_once):
-            x = x_all[b0:b0 + seqs_at_once]
-            h = fam.input0(norms, x)
-            x2 = x + linear(fam.attention(w, norms, h), w[fam.out_proj_name()])
-            x_all[b0:b0 + seqs_at_once] = x2 + linear(
-                fam.act(w, fam.input2(norms, x2)), w[fam.down_name()])
+            *_, y = fam.ref_layer(d, li, w, t, x_all[b0:b0 + seqs_at_once])
+            x_all[b0:b0 + seqs_at_once] = y
         del w
     head = o["head"].float()
     gaps = []
     for i, (p, out) in enumerate(requests):
         pos = torch.arange(len(p) - 1, len(p) - 1 + len(out), device=device)
-        logits = fam.final(o, x_all[i, pos]) @ head.T
+        logits = fam.ref_final(d, o, x_all[i, pos]) @ head.T
         served = torch.tensor(list(out), dtype=torch.long, device=device)
         gap = logits.max(-1).values - logits.gather(1, served[:, None])[:, 0]
         gaps.extend((gap / logits.std(-1)).tolist())

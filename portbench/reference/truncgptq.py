@@ -112,7 +112,10 @@ def pivoted_cholesky(h, order=None, panel: int = 128):
 def energy_rank(L, piv, trace: float, eps: float, pivot_rtol: float) -> int:
     """The smallest prefix whose captured trace sum(|l_k|^2) exceeds
     (1 - eps) tr(H), and no more than the pivots above pivot_rtol times
-    the first (at least 1)."""
+    the first (at least 1); none of a zero H (a group fed by no row), whose
+    columns then all round to nearest."""
+    if trace == 0:
+        return 0
     n = L.shape[0]
     captured = torch.cumsum((L.double() * L.double()).sum(1), 0)
     k = int((captured <= (1.0 - eps) * trace).sum())

@@ -76,11 +76,7 @@ def main(argv=None) -> int:
         for m in cell.end_to_end:
             metrics[m["name"]] = {"value": float(out.e2e[m["name"]]), "unit": m["unit"]}
     else:
-        rec = dict(out.rec, trace=out.trace)
-        for m in cell.per_layer:
-            v = bench.reader(m["name"]).read(rec)
-            if v is not None:
-                metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
+        metrics = bench.per_layer_values(cell, out.rec, out.trace)
     bad = [k for k, v in metrics.items() if not math.isfinite(v["value"])]
     if bad:
         return _fail(f"no finite value for {', '.join(bad)}", 5)

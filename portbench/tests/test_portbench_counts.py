@@ -2,16 +2,19 @@
 import pytest
 
 from portbench.counts import work
-from portbench.lib.weights import Dims
+from portbench.lib import bench
 
 # llama: hidden 8, ff 16, 2 layers, 2 heads of 4, 1 kv head, vocab 10
-D = Dims(family="llama", hidden=8, ff=16, layers=2, heads=2, kv_heads=1, head_dim=4,
-         vocab=10, max_pos=64, eps=1e-6, tie=False, qk_norm=True, rope_theta=1e4)
+D = bench.family("llama").Dims(family="llama", hidden=8, ff=16, layers=2, heads=2, kv_heads=1,
+                               head_dim=4, vocab=10, max_pos=64, eps=1e-6, tie=False,
+                               qk_norm=True, rope_theta=1e4)
 
 
 def test_layer_macs():
     # q 8x8, k 4x8, v 4x8, o 8x8, gate 16x8, up 16x8, down 8x16
-    assert work.layer_linear_macs(D) == 64 + 32 + 32 + 64 + 128 + 128 + 128
+    macs = 64 + 32 + 32 + 64 + 128 + 128 + 128
+    assert work.plan(D, 0).token_macs == macs
+    assert work.model_macs(D) == 2 * macs and work.attention_layers(D) == 2
 
 
 def test_causal_attention_flops_and_bytes():
@@ -49,7 +52,9 @@ def test_quantize_layer_least_time_by_hand():
     f32 += sum(work.gptq_flops(m, 8, 8) for m in (8, 4, 4)) + work.gptq_flops(8, 8, 8)
     f32 += sum(work.gptq_flops(m, 8, 8) for m in (16, 16)) + work.gptq_flops(8, 16, 16)
     want = (fwd + gram) / 989e12 + f32 / 67e12
-    assert work.quantize_layer_least_s(D, tokens, seq, ranks) == pytest.approx(want)
+    assert work.quantize_layer_least_s(D, 0, tokens, seq, ranks) == pytest.approx(want)
+    # the same with every group's rows given: all the tokens
+    assert work.quantize_layer_least_s(D, 1, tokens, seq, ranks, [6] * 4) == pytest.approx(want)
 
 
 def test_window_flops_by_hand():

@@ -31,7 +31,7 @@ def test_the_whole_name_is_compared():
 
 
 def test_reference_imports_nothing_of_the_port():
-    for path in (bench.PKG / "reference").glob("*.py"):
+    for path in [*(bench.PKG / "reference").glob("*.py"), *(bench.PKG / "families").glob("*.py")]:
         names = set(_imports(path))
         assert not names & {"tgq_torch", "tgq", "jax", "jaxlib", "flax"}, path
 

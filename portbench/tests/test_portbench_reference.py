@@ -4,8 +4,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench.lib import weights
-from portbench.reference import layers as ref_layers
+from portbench.lib import bench, weights
 from portbench.reference import truncgptq as ref
 from portbench.tests import tiny
 
@@ -19,22 +18,19 @@ def test_reference_forward_matches_the_port(conf):
     from tgq_torch.models.causal_lm import forward
 
     from portbench.lib.runctx import model_config
-    d = weights.dims(conf)
+    fam = bench.family(conf["family"])
+    d = fam.dims(conf)
     params = weights.make_params(d, 2**31 + 5, torch.bfloat16, "cpu")
     ids = torch.randint(0, d.vocab, (2, 48), generator=torch.Generator().manual_seed(0))
     port = forward(params, model_config(conf, "tiny"), ids, attn_impl="naive")
-    fam = ref_layers.Family(d)
-    o = ref_layers.outer_tensors(params, d, torch.float32)
-    x = fam.embed(o, ids, torch.float32)
-    for lp in params["model"]["layers"]:
-        norms = ref_layers.norm_tensors(lp, d, torch.float32)
+    o = fam.ref_outer(d, params, torch.float32)
+    x = fam.ref_embed(d, o, ids, torch.float32)
+    for li, lp in enumerate(params["model"]["layers"]):
         w = {p: (weights.get(lp, p)["w"].float(),
                  weights.get(lp, p)["b"].float() if "b" in weights.get(lp, p) else None)
-             for p, *_ in weights.linears(d)}
-        h = fam.input0(norms, x)
-        x2 = x + ref_layers.linear(fam.attention(w, norms, h), w[fam.out_proj_name()])
-        x = x2 + ref_layers.linear(fam.act(w, fam.input2(norms, x2)), w[fam.down_name()])
-    logits = fam.final(o, x) @ o["head"].float().T
+             for p, *_ in fam.layer_plan(d, li).linears}
+        *_, x = fam.ref_layer(d, li, w, fam.ref_tensors(d, lp, torch.float32), x)
+    logits = fam.ref_final(d, o, x) @ o["head"].float().T
     # the port computes in bf16 (its activations), the reference in f32
     assert _rel(port, logits) < 3e-2
 
